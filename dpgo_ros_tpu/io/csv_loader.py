@@ -2,7 +2,7 @@
 
 Replaces the reference's ``PGOLogger::loadMeasurements`` path
 (``src/PGODatasetPublisherNode.cpp:161-177``). Schema (see
-``/root/reference/data/tunnels/robot0/measurements.csv``)::
+the reference's ``data/tunnels/robot0/measurements.csv``)::
 
   robot_src,pose_src,robot_dst,pose_dst,qx,qy,qz,qw,tx,ty,tz,kappa,tau,
   is_known_inlier,weight

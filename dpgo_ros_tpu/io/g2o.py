@@ -5,7 +5,7 @@ Replaces the reference's ``DPGO::read_g2o_file`` (called at
 for extracting isotropic concentration parameters (kappa, tau) from the g2o
 information matrix.
 
-Format (see ``/root/reference/data/tinyGrid3D.g2o``):
+Format (see the reference's ``data/tinyGrid3D.g2o``):
   ``VERTEX_SE3:QUAT id x y z qx qy qz qw``
   ``EDGE_SE3:QUAT i j tx ty tz qx qy qz qw  <21 upper-triangular 6x6 info>``
 and the 2D variants ``VERTEX_SE2`` / ``EDGE_SE2``.
@@ -182,7 +182,7 @@ def write_g2o(path: str, trajectory: np.ndarray, measurements=None) -> None:
     """Write a trajectory (n, d, d+1) — and optionally its measurements — to g2o.
 
     Counterpart of the reference's rviz-based trajectory output
-    (``src/PGOAgentROS.cpp:629-642``); files are the TPU framework's
+    (``src/PGOAgentROS.cpp:629-642``); files are the framework's
     visualization/export interchange format.
     """
     traj = np.asarray(trajectory)

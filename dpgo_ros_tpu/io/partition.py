@@ -67,7 +67,7 @@ def balanced_contiguous_partition(
     The reference's equal-pose-count split (``PGODatasetPublisherNode.cpp:
     84-103``) balances poses but not edge work: on parking-garage@5 the
     loop closures concentrate in two blocks (work skew 1.73 → projected
-    N-chip efficiency 0.57, SCALING_r03.json). Weighting each pose by
+    N-chip efficiency 0.57 from a lane-cost model of the work). Weighting each pose by
     1 + its owned-edge count restores balance while keeping blocks
     contiguous (odometry stays chain-lane-friendly).
 

@@ -4,11 +4,12 @@ The reference ships fixed datasets only (and its `.MISSING_LARGE_BLOBS`
 notes two more it lost); there is no way to test at sizes beyond cubicle's
 5,750 poses or to measure accept/reject precision-recall against real
 labels (the tunnels CSVs carry none — docs/PARITY.md). This generator
-produces worlds of ARBITRARY size with known ground truth:
+produces worlds of ARBITRARY size with known ground truth (the named,
+seeded worlds every entry point uses are in ``io/datasets.py``):
 
 * ``sphere``: a spiral on a sphere (the sphere2500 family) — loop closures
   connect adjacent rings at a constant index offset, so the graph is
-  banded and exercises the kernel's diagonal lane-shift classes.
+  banded.
 * ``grid3d``: a serpentine sweep of an nx×ny×nz lattice (the grid3D
   family) — loop closures connect lattice neighbors at offsets ±nx and
   ±nx·ny.

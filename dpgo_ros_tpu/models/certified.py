@@ -1,7 +1,7 @@
 """Certifiably-correct centralized solve: the Riemannian staircase.
 
 The reference's accuracy claims rest on the SE-Sync certifiable-correctness
-line of work (``/root/reference/README.md:79-112``), but the reference stack
+line of work (reference ``README.md:79-112``), but the reference stack
 never *checks* its answers. This module closes the loop: solve the rank-r
 relaxation tight, run the dual certificate (:mod:`dpgo_ros_tpu.ops
 .certificate`), and if S has negative curvature, ascend one rank along the
@@ -10,9 +10,8 @@ optimum* of the SDP relaxation (and, when rank(X) = d, of the original
 SE(d) synchronization problem).
 
 Used by the golden-optima pipeline (``scripts/golden_solves.py``) to prove
-the published optima in docs/PERFORMANCE.md are the global optima of the
-bundled dataset copies — turning the sphere2500 1693.5-vs-1687.0
-"different dataset copy" annotation into a theorem about our copy.
+the optima in ``golden_optima.json`` are the global optima of the generated
+worlds.
 """
 
 from __future__ import annotations
@@ -56,7 +55,7 @@ def _newton_polish(
     max_newton: int = 25,
     verbose: bool = False,
 ):
-    """Host sparse-KKT Riemannian Newton polish (round 5, VERDICT r4 #9).
+    """Host sparse-KKT Riemannian Newton polish (round 5).
 
     The fp64 tight-solve tail dominated certified solves: parking-garage
     needs ~1,300 s of truncated-CG to reach gradnorm 1e-6 because its SDP
@@ -260,8 +259,7 @@ def certified_solve(
 
     ``init="random"`` starts from a random point instead of chordal —
     with ``r0=d`` this reliably lands in suboptimal critical points and
-    exercises the staircase's escape path on real datasets (round 4,
-    ``scripts/record_staircase.py``).
+    exercises the staircase's escape path (round 4).
     """
     from dpgo_ros_tpu.models.problem import LiftedProblem
 

@@ -75,8 +75,8 @@ def _masked_precond(Pinv, X, V, mask):
     """Tangent-projected, masked application of the block-Jacobi inverse.
 
     ``Pinv`` is the precomputed inverse (``quadratic.precond_inverse``) —
-    application is one batched matmul; factorizing per tCG iteration was the
-    dominant per-update cost on TPU."""
+    application is one batched matmul instead of a factorization per tCG
+    iteration."""
     W = quadratic.precond_apply(Pinv, V)
     return mask * stiefel.proj_tangent(X, W)
 

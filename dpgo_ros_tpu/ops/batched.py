@@ -1,11 +1,11 @@
 """Batched tiny-matrix contractions as broadcast-multiply-reduce.
 
-XLA lowers batched matmuls with tiny per-batch shapes (5×4 @ 4×4, batch
-~thousands) onto the MXU path, where they serialize — measured ~500µs for an
-op whose data fits in ~200KB. Expressing the same contraction as a broadcast
-elementwise product + sum keeps it on the VPU as one fused kernel (~µs).
-These helpers are used for every per-pose/per-edge d- and r-sized
-contraction on the hot path.
+Batched matmuls with tiny per-batch shapes (5×4 @ 4×4, batch ~thousands)
+are expressed as a broadcast elementwise product + sum, which XLA fuses
+with its neighbours into one elementwise kernel instead of emitting a
+batched-matmul call per contraction. These helpers are used for every
+per-pose/per-edge d- and r-sized contraction on the hot path. Whether this
+beats a batched ``einsum`` on a given device is a measurement (ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Chordal initialization: rotation averaging + translation recovery.
 
-TPU-native replacement for DPGO's ``localInitializationMethod=Chordal``
+Matrix-free replacement for DPGO's ``localInitializationMethod=Chordal``
 (reference ``src/PGOAgentROSNode.cpp:104-117``; used by the demos,
 ``launch/dpgo_demo.launch:9``). Instead of a sparse direct solve, both stages
 are matrix-free conjugate-gradient solves whose matvecs are the same

@@ -1,6 +1,6 @@
 """Batched SO(d)/SE(d) operations in JAX.
 
-TPU-native replacement for the Eigen/tf quaternion math used by the reference
+Device-side replacement for the Eigen/tf quaternion math used by the reference
 serialization layer (``src/utils.cpp:63-106``). Everything is batched,
 static-shape, and differentiable.
 """
@@ -69,7 +69,7 @@ def odometry_chain(rel: jnp.ndarray, T0: jnp.ndarray | None = None) -> jnp.ndarr
     """Integrate a chain of (n-1, d, d+1) relative transforms into (n, d, d+1)
     absolute poses via parallel prefix (``lax.associative_scan``).
 
-    TPU-native equivalent of the reference's sequential odometry
+    Parallel equivalent of the reference's sequential odometry
     initialization (DPGO ``localInitializationMethod=Odometry``,
     ``src/PGOAgentROSNode.cpp:104-117``) — O(log n) depth instead of O(n).
     """

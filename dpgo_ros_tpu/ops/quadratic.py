@@ -1,6 +1,6 @@
 """The lifted PGO quadratic form and its edge-parallel operators.
 
-This is the framework's hot path — the TPU-native replacement for the DPGO
+This is the framework's hot path — the matrix-free replacement for the DPGO
 core's cached data matrices ("connection Laplacian", invalidated by
 ``PoseGraph::clearDataMatrices`` on weight changes, reference
 ``src/PGOAgentROS.cpp:1351``).
@@ -46,9 +46,9 @@ class EdgeSet:
     ``pull`` (optional, (n, D) int32) is the transpose-incidence gather
     index: row i lists the contribution rows of pose i's incident edges
     (edge k as src ↦ k; edge k as dst ↦ E + k; padding ↦ 2E). When present,
-    every accumulation uses gather-sum instead of scatter-add — scatter
-    serializes on the TPU and dominates the Hessian-op cost; the pull path
-    is pure gathers, which the TPU does at HBM bandwidth. Build with
+    every accumulation uses gather-sum instead of scatter-add (the pull
+    path is pure gathers; whether it beats scatter-add on a given device
+    is a measurement, not a given). Build with
     :func:`build_pull_index`.
     """
 
@@ -106,7 +106,7 @@ def _pull_sum(contrib_src: jnp.ndarray, contrib_dst: jnp.ndarray, pull: jnp.ndar
     """Accumulate per-edge contributions into per-pose sums via gather-sum.
 
     contrib_src/contrib_dst: (E, ...) contributions to the src/dst endpoint.
-    Returns (n, ...). Pure gathers — no scatter (which serializes on TPU).
+    Returns (n, ...). Pure gathers — no scatter.
     """
     zero = jnp.zeros((1,) + contrib_src.shape[1:], contrib_src.dtype)
     C = jnp.concatenate([contrib_src, contrib_dst, zero], axis=0)  # (2E+1, ...)
@@ -250,8 +250,8 @@ def precond_solve(P: jnp.ndarray, V: jnp.ndarray) -> jnp.ndarray:
     solve (tiny matrices — XLA keeps them on-chip).
 
     Hot loops should instead precompute :func:`precond_inverse` once per
-    block update and apply it with :func:`precond_apply` — a factorization
-    per tCG application is the dominant per-iteration cost on TPU.
+    block update and apply it with :func:`precond_apply` instead of a
+    factorization per tCG application.
     """
     L = jnp.linalg.cholesky(P)
     # solve P x^T = v^T  for each row block: use triangular solves
@@ -277,5 +277,5 @@ def precond_inverse(P: jnp.ndarray) -> jnp.ndarray:
 
 def precond_apply(Pinv: jnp.ndarray, V: jnp.ndarray) -> jnp.ndarray:
     """V_i ← V_i P_i^{-1} with a precomputed symmetric inverse (one batched
-    matmul — VPU/MXU friendly)."""
+    matmul)."""
     return bmm(V, Pinv)

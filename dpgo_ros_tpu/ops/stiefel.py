@@ -6,8 +6,8 @@ orthonormal *columns* (a point on the Stiefel manifold St(d, r)) and
 relaxation of SE-Sync/DPGO: rank r defaults to 5 for d=3 (reference
 ``launch/PGOAgent.launch:12``; DPGO ``LiftedPose(r, d)`` per SURVEY.md §2.3).
 
-All ops are batched over poses and differentiable; retractions are
-MXU-friendly (small d×d eigendecompositions / QR of r×d blocks).
+All ops are batched over poses and differentiable; retractions use small
+d×d eigendecompositions / QR of r×d blocks, or matmul-only Newton-Schulz.
 """
 
 from __future__ import annotations
@@ -71,13 +71,13 @@ def retract_polar_ns(
     X: jnp.ndarray, V: jnp.ndarray, iters: int = 20
 ) -> jnp.ndarray:
     """Polar retraction via Newton–Schulz iteration — matmul-only, no
-    eigendecomposition; the TPU hot-path variant of :func:`retract_polar`.
+    eigendecomposition; the hot-path variant of :func:`retract_polar`.
 
     X_{k+1} = ½ X_k (3I − X_kᵀX_k) converges to polar(A) for σ(A) ∈ (0, √3).
     A = Y + V_Y is pre-scaled by trace normalization (σ_max ≤ 1), so the
     iteration is contractive for any tangent step. The default 20 iterations
     covers σ_min down to ~1e-3 (small singular values grow ×1.5/iteration
-    before the quadratic phase); each iteration is two tiny VPU
+    before the quadratic phase); each iteration is two tiny
     contractions, still ≫ faster than a batched eigh. A trust-region step
     producing σ_min ≪ 1e-3 is a (numerically) rank-deficient pose block,
     where the polar factor is ill-defined for any method.

@@ -106,8 +106,8 @@ class PGOAgentNode:
         )
         # protocol-layer pose state is NUMPY (round 4): per-tick message
         # handling (separator gathers/scatters, init bookkeeping) was
-        # paying an eager-JAX dispatch per operation — ~60 ms each on this
-        # runtime — which dominated fleet wall time; device arrays now
+        # paying an eager-JAX dispatch per operation, which dominated fleet
+        # wall time; device arrays now
         # exist only inside the solve calls
         self.np_dt = (
             np.float64 if self.config.dtype == "float64" else np.float32
@@ -1075,7 +1075,7 @@ class PGOAgentNode:
         # frozen (weight=0, fixedWeight=true) — later rounds (and the
         # TERMINATE undecided-resolution) can no longer re-admit it.
         # Distance-to-binary freezing was tried and misfires (weights start
-        # near 1 under small mu — exp_tunnels_schedule.json 'freeze6').
+        # near 1 under small mu).
         thr = self.config.weight_convergence_threshold
         if thr > 0:
             conv = mine & (w < thr)

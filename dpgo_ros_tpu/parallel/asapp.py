@@ -8,7 +8,7 @@ own preconditioned Riemannian-gradient loop continuously, reading neighbor
 separator poses that may be several iterations stale (ASAPP, Tian et al.
 RA-L 2020 — convergence holds under bounded delay with small stepsizes).
 
-TPU-native design: real wall-clock asynchrony doesn't exist in lockstep SPMD,
+Design: real wall-clock asynchrony doesn't exist in lockstep SPMD,
 so asynchrony is modeled as *deterministic bounded staleness* — a ring buffer
 of the last K+1 global states; at tick t robot k sees its own block at t and
 every neighbor at t − δ_k(t), δ_k(t) ~ U{0..K} from a seeded PRNG (δ ≡ 0
@@ -45,7 +45,7 @@ import numpy as np
 
 from dpgo_ros_tpu.models.local_solvers import RGDParams
 from dpgo_ros_tpu.models.problem import LiftedProblem
-from dpgo_ros_tpu.ops import fused_asapp, fused_rtr, quadratic, stiefel
+from dpgo_ros_tpu.ops import quadratic, stiefel
 from dpgo_ros_tpu.utils.config import AgentConfig
 
 
@@ -95,45 +95,6 @@ class ASAPPEngine:
             quadratic.precond_blocks(e, problem.n)
         )
         self._tick = jax.jit(self._tick_impl)
-
-        # single-Pallas-kernel tick (ops/fused_asapp.py): the whole tick —
-        # per-robot stale views, RGD steps, retraction, movement stats — is
-        # ONE kernel; the XLA vmap tick pays R x steps_per_tick multi-fusion
-        # gradient passes per tick (VERDICT r2 #8)
-        auto = (
-            self.dtype == jnp.float32
-            and jax.default_backend() == "tpu"
-        )
-        want = (
-            self.config.use_fused_kernel
-            if self.config.use_fused_kernel is not None
-            else auto
-        )
-        self._use_fused = bool(
-            want
-            and self.dtype == jnp.float32
-            and problem.num_robots <= fused_rtr.MAX_ROBOTS
-        )
-        self._interpret_fused = jax.default_backend() != "tpu"
-        if self._use_fused:
-            self._kg = fused_rtr.build_kernel_graph(problem)
-            kg = self._kg
-            rof_rows = np.zeros(
-                (problem.num_robots, kg.n_pad), np.float32
-            )
-            for k in range(problem.num_robots):
-                rof_rows[k, : problem.n] = (rof == k).astype(np.float32)
-            self._mask_rows = jnp.asarray(rof_rows)
-            self._pinv_t = fused_rtr.pinv_to_t(
-                self._Pinv.astype(jnp.float32), kg.n_pad
-            )
-            self._wrows = kg.weight_rows(e, e.weight)
-            self._consts = kg.constants()
-            self._wins = (
-                jnp.asarray(fused_rtr.wins_row(kg))
-                if kg.loop_win_off is not None
-                else None
-            )
 
     def init_state(self, X0: jnp.ndarray, key=None) -> ASAPPState:
         key = key if key is not None else jax.random.PRNGKey(self.config.seed)
@@ -207,79 +168,7 @@ class ASAPPEngine:
             X=X_new, hist=hist, tick=st.tick + 1, key=key, rel_change=moved
         )
 
-    def _make_fused_run_t(self, tol: float = 0.0, record_upto: int = 0):
-        """Transposed-resident fused runner: the tick while_loop carries the
-        state and ring buffer in the kernel's (C, n_pad) layout and each
-        tick is ONE Pallas kernel (ops/fused_asapp.py) plus a ring-buffer
-        row write — natural-layout state materializes only at entry/exit
-        (API parity with the XLA runner: same ASAPPState in/out, same PRNG
-        stream, same staleness semantics)."""
-        prob, kg = self.problem, self._kg
-        R = prob.num_robots
-        Kp1 = self.K + 1
-        C = prob.r * (prob.d + 1)
-        Cp = fused_asapp._rup(C, 8)
-
-        @jax.jit
-        def run(st: ASAPPState, until_tick, hist=None):
-            Xt0 = fused_rtr.to_t(st.X, kg.n_pad)
-            Ht0 = fused_asapp.hist_to_t(st.hist, kg.n_pad)
-
-            def cond(c):
-                (Xt, Ht, tick, key, rel), h = c
-                keep = tick < until_tick
-                if tol > 0:
-                    keep = keep & ~jnp.all(rel < tol)
-                return keep
-
-            def body(c):
-                (Xt, Ht, tick, key, rel), h = c
-                key, sub = jax.random.split(key)
-                delays = jax.random.randint(sub, (R,), 0, Kp1)
-                gamma = self._stepsize_at(tick)
-                Xt_new, stats = fused_asapp.asapp_tick_fused(
-                    Xt, Ht, self._mask_rows, self._pinv_t, self._wrows,
-                    delays[None, :].astype(jnp.int32), gamma, kg, Kp1,
-                    self.steps_per_tick, self.rgd.use_preconditioner,
-                    interpret=self._interpret_fused,
-                    consts=self._consts, wins=self._wins,
-                )
-                moved = jax.lax.dynamic_slice(
-                    stats, (0, fused_rtr._S_MOVED), (1, R)
-                )[0].astype(self.dtype)
-                # ring slot (tick mod K+1) <- pre-tick state (pad rows
-                # beyond C are never read by the stale slices)
-                row0 = (jnp.mod(tick, Kp1) * Cp).astype(jnp.int32)
-                Ht2 = jax.lax.dynamic_update_slice(
-                    Ht, Xt, (row0, jnp.asarray(0, jnp.int32))
-                )
-                if record_upto:
-                    h = h.at[tick].set(moved)
-                return (Xt_new, Ht2, tick + 1, key, moved), h
-
-            h0 = hist if hist is not None else jnp.zeros((), jnp.int8)
-            carry0 = (
-                (Xt0, Ht0, st.tick, st.key,
-                 st.rel_change.astype(self.dtype)),
-                h0,
-            )
-            (Xt, Ht, tick, key, rel), h = jax.lax.while_loop(
-                cond, body, carry0
-            )
-            X = fused_rtr.from_t(Xt, prob.n, prob.r, prob.d + 1)
-            hist_n = fused_asapp.hist_from_t(
-                Ht, Kp1, prob.n, prob.r, prob.d + 1
-            )
-            out = ASAPPState(
-                X=X, hist=hist_n, tick=tick, key=key, rel_change=rel
-            )
-            return (out, h) if record_upto else out
-
-        return run
-
     def make_fused_run(self, tol: float = 0.0, record_upto: int = 0):
-        if self._use_fused:
-            return self._make_fused_run_t(tol, record_upto)
         """Jitted runner ``run(state, until_tick)``: async ticks as one XLA
         program — `lax.while_loop` with on-device relative-change
         termination (tol 0 disables early exit → exactly ``until_tick``).

@@ -22,8 +22,8 @@ cross-process analog:
   full :class:`PoseGraphData` for engine/SPMD modes; ``publish_trajectory``
   sends a solved trajectory back.
 
-Wire format (TPU-native stance: the framework's collective compute rides
-ICI/DCN inside XLA — this service is host-side ingestion plumbing, so it
+Wire format (the framework's collective compute rides the device
+interconnect inside XLA — this service is host-side ingestion plumbing, so it
 uses a dependency-free length-prefixed npz framing): each message is a
 4-byte big-endian length followed by an ``.npz`` archive; the ``__op__``
 array carries the JSON-encoded header, numpy arrays carry the payload.
@@ -287,7 +287,7 @@ def main(argv=None) -> int:
     """Serve a dataset as a standalone front-end process."""
     import argparse
 
-    from dpgo_ros_tpu.io.datasets import load_g2o_dataset, load_tunnels
+    from dpgo_ros_tpu.io.datasets import load_dataset
 
     p = argparse.ArgumentParser(
         description=(
@@ -295,18 +295,16 @@ def main(argv=None) -> int:
             "over TCP (reference PGODatasetPublisherNode analog)"
         )
     )
-    p.add_argument("--dataset", default="tunnels",
-                   help="bundled g2o name or 'tunnels'")
+    p.add_argument("--dataset", default="synthetic_gnc8",
+                   help="a generated world, or a bundled g2o name or "
+                   "'tunnels' (read from DPGO_TPU_DATA_DIR)")
     p.add_argument("--num_robots", type=int, default=None)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=7750)
     p.add_argument("--output", default=None,
                    help="directory for received trajectories")
     a = p.parse_args(argv)
-    if a.dataset == "tunnels":
-        data = load_tunnels(num_robots=a.num_robots or 8)
-    else:
-        data = load_g2o_dataset(a.dataset, num_robots=a.num_robots or 2)
+    data = load_dataset(a.dataset, num_robots=a.num_robots)
     srv = PoseGraphPublisher(
         data, host=a.host, port=a.port, output_dir=a.output
     )

@@ -1,15 +1,17 @@
 """Multi-host (multi-process) SPMD execution over DCN.
 
 SURVEY.md §7 step 8: the reference scales by adding robot *processes* on a
-lossy ROS network (`src/PGOAgentROS.cpp:45-82`); the TPU-native framework
+lossy ROS network (`src/PGOAgentROS.cpp:45-82`); this framework
 scales by adding *hosts* to the device mesh — the same `shard_map` program
 from :mod:`dpgo_ros_tpu.parallel.spmd` runs unchanged, with XLA routing the
-separator all_gather over ICI within a host and DCN across hosts.
+separator all_gather over the devices' interconnect within a host and
+the network across hosts.
 
 This module holds the process-level plumbing:
 
 * :func:`initialize` — bring up the JAX distributed runtime (coordinator
-  rendezvous). On TPU pods each process sees its local chips and the global
+  rendezvous). On a multi-host cluster each process sees its local devices
+  and the global
   mesh spans all of them; for CI/dev the same code path runs on CPU
   processes with Gloo collectives (``platform="cpu"`` forces N virtual
   local devices per process).
@@ -48,9 +50,9 @@ def initialize(
 
     Must run before the first JAX backend use. ``platform="cpu"`` with
     ``local_device_count=k`` gives k virtual CPU devices per process
-    (collectives over Gloo) — the CI stand-in for one TPU host with k chips.
-    On real TPU pods leave both unset; the PJRT plugin discovers local chips
-    and process topology.
+    (collectives over Gloo) — the CI stand-in for one host with k devices.
+    On real accelerator hosts leave both unset; the PJRT plugin discovers
+    local devices and process topology.
     """
     if platform == "cpu" and local_device_count:
         flags = os.environ.get("XLA_FLAGS", "")

@@ -1,9 +1,9 @@
 """Multi-chip SPMD distributed PGO: pose blocks sharded over a device mesh.
 
-This is the TPU-native replacement for the reference's per-robot ROS
+This is the device-mesh replacement for the reference's per-robot ROS
 processes and TCPROS topics (SURVEY.md §1-L3, §5.8): one robot block per mesh
 slot along a ``robots`` axis; the separator-pose exchange
-(``msg/PublicPoses.msg``) becomes a single ``all_gather`` over ICI/DCN; GNC
+(``msg/PublicPoses.msg``) becomes a single ``all_gather`` across the mesh; GNC
 weight replication (``msg/RelativeMeasurementWeights.msg``) is implicit —
 every device recomputes identical weights from the gathered state; and
 termination gossip (``msg/Status.msg``) is a ``psum`` of per-robot
@@ -113,16 +113,16 @@ def group_robots(data, num_groups: int):
 def repartition_slots(data, num_slots: int):
     """Work-balanced contiguous re-partition of the GLOBAL pose sequence
     into ``num_slots`` slot blocks — SPLITS hot robots across mesh slots
-    and co-schedules cold ones (VERDICT r4 #6).
+    and co-schedules cold ones.
 
     Dataset-fixed fleets (tunnels' per-robot CSV split,
     ``params/robot_measurements.yaml``) pin the robot partition, so
     ``--partition_balance work`` cannot help and the hottest robot bounds
     the mesh step (tunnels@8 work skew 1.29 → projected efficiency 0.76,
-    SCALING_r03.json). The mesh does not care about robot identity — a
+    from a lane-cost model of the work). The mesh does not care about robot identity — a
     slot's masked block solve is correct for ANY contiguous pose range —
     so this rebalances the slot boundaries directly: per-pose work
-    density = 1 + deg/2 (lane cost model of SCALING_r03), cut at the
+    density = 1 + deg/2 (the lane-cost model above), cut at the
     work quantiles. The measurement set is unchanged (labels only), so
     costs are partition-invariant; cross-slot edges become shared
     (separator) loop closures exactly as in :func:`group_robots`.
@@ -141,7 +141,7 @@ def repartition_slots(data, num_slots: int):
     mb = data.measurements
     gsrc = offs[mb.src_robot] + mb.src_frame
     gdst = offs[mb.dst_robot] + mb.dst_frame
-    # per-pose work density (lane-cost model of SCALING_r03: a block owns
+    # per-pose work density (lane-cost model: a block owns
     # the edges whose SRC pose it holds): 1 + #edges sourced at the pose
     w = _np.ones(n, _np.float64)
     _np.add.at(w, gsrc, 1.0)
@@ -428,9 +428,7 @@ def build_spmd_step(
     )
     M, n_max = sp.M, sp.n_max
     gnc = cfg.robust_cost_type == RobustCostType.GNC_TLS
-    S = max(1, int(getattr(cfg, "spmd_steps_per_launch", 1)))
-    stretch_rgd = getattr(cfg, "spmd_stretch_rgd_stepsize", None)
-    sep_only = getattr(cfg, "spmd_separator_only", None)
+    sep_only = cfg.spmd_separator_only
     if sep_only is None:
         sep_only = sp.sep_idx is not None
     # GNC compatibility: the step exchange only feeds the masked solves
@@ -450,131 +448,6 @@ def build_spmd_step(
         ).astype(np.int32)
         _pad_pose = np.zeros((sp.r, sp.d + 1), np.float32)
         _pad_pose[: sp.d, : sp.d] = np.eye(sp.d)
-
-    # --- fused single-Pallas-kernel local solve (ops/fused_rtr.py) --------
-    # Per-device KernelGraphs over the GLOBAL gathered pose space share one
-    # static shape (common n_pad / E_loop_pad), so the same kernel program
-    # runs on every mesh slot with its device's chain/loop arrays as sharded
-    # constants — the multi-chip analogue of the engine's fused path.
-    from dpgo_ros_tpu.ops import fused_rtr
-
-    auto_fused = (
-        sp.X0.dtype == np.float32 and jax.default_backend() == "tpu"
-    )
-    use_fused = (
-        cfg.use_fused_kernel
-        if cfg.use_fused_kernel is not None
-        else auto_fused
-    ) and sp.X0.dtype == np.float32
-    interp_fused = jax.default_backend() != "tpu"
-    kg_consts = {}
-    kg0 = None
-    if use_fused:
-        n_pad = max((M * n_max + 255) // 256 * 256, 256)
-        kgs = []
-        for m in range(M):
-            e_m = EdgeSet(
-                src=sp.src[m], dst=sp.dst[m], R=sp.R[m], t=sp.t[m],
-                kappa=sp.kappa[m], tau=sp.tau[m],
-                weight=sp.weight[m], mask=sp.mask[m],
-                is_loop=sp.is_loop[m],
-            )
-            kgs.append(fused_rtr.KernelGraph.build(
-                e_m, M * n_max, 0, (), (), n_pad=n_pad, windowed=True))
-        def _build_m(m, **kw):
-            return fused_rtr.KernelGraph.build(
-                EdgeSet(
-                    src=sp.src[m], dst=sp.dst[m], R=sp.R[m], t=sp.t[m],
-                    kappa=sp.kappa[m], tau=sp.tau[m],
-                    weight=sp.weight[m], mask=sp.mask[m],
-                    is_loop=sp.is_loop[m],
-                ),
-                M * n_max, 0, (), (), n_pad=n_pad, windowed=True, **kw,
-            )
-
-        # one program across mesh slots needs a common static diagonal-class
-        # tuple: the union over devices (devices lacking a Δ carry zero
-        # weight rows for it), truncated to MAX_DIAGS by claimed-edge count
-        dunion = tuple(sorted(set().union(*[set(k.diags2) for k in kgs])))
-        if len(dunion) > fused_rtr.MAX_DIAGS:
-            from collections import Counter
-
-            freq = Counter()
-            for k in kgs:
-                E_pad_k = len(k.diag_lane_of_edge)
-                for j, dd in enumerate(k.diags2):
-                    lanes = k.diag_edge_of_lane[
-                        j * k.n_pad:(j + 1) * k.n_pad
-                    ]
-                    freq[dd] += int((lanes < E_pad_k).sum())
-            dunion = tuple(sorted(
-                dd for dd, _ in freq.most_common(fused_rtr.MAX_DIAGS)
-            ))
-        if any(tuple(k.diags2) != dunion for k in kgs):
-            # pass 1: common diagonal tuple (can change per-device E_loop)
-            kgs = [_build_m(m, diags_force=dunion) for m in range(M)]
-        elp = max(
-            max(k.E_loop_pad for k in kgs), fused_rtr.CHUNK // 2
-        )
-        winw = max(k.loop_win_w for k in kgs)
-        if any(
-            k.E_loop_pad != elp or k.loop_win_w != winw for k in kgs
-        ):
-            # pass 2: common static E_loop_pad and window width; per-device
-            # window OFFSETS, geometry and weight rows stay data
-            kgs = [
-                _build_m(
-                    m, e_loop_pad=elp, win_w_force=winw,
-                    diags_force=dunion,
-                )
-                for m in range(M)
-            ]
-        # the kernel's static has_loops flag must hold for EVERY mesh slot
-        kg0 = dataclasses.replace(
-            kgs[0].with_rank(sp.r),
-            E_loop=max(k.E_loop for k in kgs),
-        )
-        kg_consts = {
-            "kg_idx2": np.stack([k.loop_idx2 for k in kgs]),
-            "kg_cR": np.stack([k.chain_R for k in kgs]),
-            "kg_ct": np.stack([k.chain_t for k in kgs]),
-            "kg_lR": np.stack([k.loop_R for k in kgs]),
-            "kg_lt": np.stack([k.loop_t for k in kgs]),
-            "kg_cel": np.stack([k.chain_edge_of_lane for k in kgs]),
-            "kg_les": np.stack([k.loop_edge_of_slot for k in kgs]),
-            "kg_del": np.stack([k.diag_edge_of_lane for k in kgs]),
-            "kg_d2R": np.stack([k.diag_R for k in kgs]),
-            "kg_d2t": np.stack([k.diag_t for k in kgs]),
-            "kg_wins": np.stack([fused_rtr.wins_row(k) for k in kgs]),
-        }
-        # precomputed per-device one-hot tables (same static shape, rows as
-        # sharded data) — round-3 tabled kernel path
-        spmd_tabled = kg0.want_tabled()
-        if spmd_tabled:
-            kg_consts["kg_oh"] = np.stack(
-                [k.oh_table_np() for k in kgs]
-            )
-    # multi-step stretch (round 5): S solver steps per kernel launch per
-    # mesh slot — requires the fused kernel and a per-slot robot row in the
-    # kernel's stats machinery (one slot = one "robot" at offset m*n_max)
-    from dpgo_ros_tpu.ops.fused_rtr import MAX_ROBOTS as _MAXR, _REL_W
-
-    if S > 1 and (not use_fused or M > _MAXR):
-        S = 1
-    if S > 1 and M > 1 and stretch_rgd is None:
-        # multi-slot stretches default to the staleness-robust ASAPP RGD
-        # rule: full RTR block solves against S-step-stale separators
-        # DIVERGE (measured round 5 — Jacobi overshoot); only an M=1 mesh
-        # has nothing to be stale against
-        stretch_rgd = float(cfg.RGD_stepsize)
-    kg_ms = None
-    if use_fused and S > 1:
-        kg_ms = dataclasses.replace(
-            kg0,
-            num_robots=M,
-            offsets=tuple(int(m * n_max) for m in range(M)),
-            num_poses=(int(n_max),) * M,
-        )
 
     # Static per-device tensors, device_put as *global* sharded arrays and
     # passed as jit arguments (NOT closed over: closing over an array that
@@ -599,7 +472,6 @@ def build_spmd_step(
                 if sep_only
                 else {}
             ),
-            **kg_consts,
         ).items()
     }
 
@@ -612,7 +484,7 @@ def build_spmd_step(
         # --- separator exchange: the PublicPoses analogue -----------------
         # Single fused all_gather for (X, V): independent collectives can be
         # scheduled in different orders by per-device executors and deadlock
-        # the in-process CPU rendezvous; one collective also means one ICI
+        # the in-process CPU rendezvous; one collective also means one
         # transfer on hardware. V is the is_auxiliary stream.
         if sep_only:
             # only the separator slabs travel (round 5): non-separator
@@ -656,23 +528,7 @@ def build_spmd_step(
         )
         # --- masked local solve ------------------------------------------
         my_color = c["color"][0]
-        if S > 1:
-            # stretch mode: S steps execute IN the kernel against
-            # stretch-start separators (bounded staleness <= S-1, the
-            # reference maxDelayedIterations / ASAPP semantics);
-            # ``active`` = "this slot updates at some step of the stretch".
-            # RGD stretches update every step (ASAPP parallel updates);
-            # RTR stretches keep the colored schedule (exact on an M=1
-            # mesh where there is nothing to be stale against).
-            gsteps = step_idx * S + jnp.arange(S, dtype=jnp.int32)
-            if stretch_rgd is not None:
-                act_steps = jnp.ones((S,), jnp.bool_)
-            else:
-                act_steps = my_color == jnp.mod(gsteps, sp.num_colors)
-            active = jnp.max(act_steps.astype(Xg.dtype))
-        else:
-            act_steps = None
-            active = (my_color == step_idx % sp.num_colors).astype(Xg.dtype)
+        active = (my_color == step_idx % sp.num_colors).astype(Xg.dtype)
         own_full = jnp.zeros((M * n_max,), Xg.dtype)
         own_full = jax.lax.dynamic_update_slice(
             own_full, c["pose_valid"][0], (start,)
@@ -684,67 +540,9 @@ def build_spmd_step(
         )
 
         def local_solve(Xfull):
-            """Masked RTR on the gathered state: fused Pallas kernel when
-            enabled (one multi-step launch in stretch mode), XLA ops
-            otherwise."""
-            if not use_fused:
-                Z, _ = rtr_solve(Xfull, e, mask, P_blocks, rtr)
-                return Z
-            Xt = fused_rtr.to_t(Xfull, kg0.n_pad)
-            pinvT = fused_rtr.pinv_to_t(P_blocks, kg0.n_pad)
-            wrows = fused_rtr.weight_rows_gather(
-                e.kappa, e.tau, e.mask, e.weight,
-                c["kg_cel"][0], c["kg_les"][0], c["kg_del"][0],
-                kg0.n_pad,
-            )
-            kconsts = (
-                c["kg_idx2"][0], c["kg_cR"][0], c["kg_ct"][0],
-                c["kg_lR"][0], c["kg_lt"][0],
-                c["kg_d2R"][0], c["kg_d2t"][0],
-            )
-            if S > 1:
-                # bank row 1 = my full block, row 0 = zeros; the SMEM
-                # schedule selects row 1 exactly on my color's turns —
-                # S=1 semantics recovered step-for-step, separators frozen
-                # at the launch boundary
-                own_row = fused_rtr.mask_to_row(
-                    own_full[:, None, None], kg_ms.n_pad
-                )
-                iota_r = jnp.arange(8, dtype=jnp.int32)[:, None]
-                mrows = jnp.where(iota_r == 1, own_row, 0.0)
-                sched_row = act_steps.astype(jnp.int32)[None, :]
-                rel0 = jnp.where(
-                    jnp.arange(_REL_W, dtype=jnp.int32)[None, :] < M,
-                    1.0,
-                    -1.0,
-                ).astype(jnp.float32)
-                adj0 = jnp.zeros((_REL_W, _REL_W), jnp.float32)
-                scal = jnp.zeros((1, 8), jnp.int32)
-                cost0 = jnp.zeros((1, 1), jnp.float32)
-                Xt_new, _, _ = fused_rtr.rtr_run_fused(
-                    Xt, mrows, pinvT, wrows, kg_ms, rtr,
-                    adj_pad=adj0, rel0=rel0, sched=sched_row,
-                    scal=scal, cost0=cost0, it_cap=S, tol=0.0,
-                    gnc=False, inner=S, inner_tol=None,
-                    interpret=interp_fused,
-                    consts=kconsts,
-                    wins=c["kg_wins"][0],
-                    oh=c["kg_oh"][0] if spmd_tabled else None,
-                    rgd_stepsize=(
-                        float(stretch_rgd) if stretch_rgd else 0.0
-                    ),
-                )
-            else:
-                mrow = fused_rtr.mask_to_row(mask, kg0.n_pad)
-                Xt_new, _ = fused_rtr.rtr_solve_fused(
-                    Xt, mrow, pinvT, wrows, kg0, rtr,
-                    interpret=interp_fused,
-                    consts=kconsts,
-                    wins=c["kg_wins"][0],
-                    oh=c["kg_oh"][0] if spmd_tabled else None,
-                )
-            Z = fused_rtr.from_t(Xt_new, M * n_max, sp.r, sp.d + 1)
-            return jnp.where(mask > 0, Z, Xfull)
+            """Masked RTR block solve on the gathered state."""
+            Z, _ = rtr_solve(Xfull, e, mask, P_blocks, rtr)
+            return Z
 
         if cfg.acceleration:
             # Accelerated RBCD: solve the block against the *auxiliary*
@@ -878,7 +676,7 @@ def build_spmd_step(
             X_prev=X_prev_own[None],
             V=V_own_new[None],
             theta=jnp.asarray(theta_out)[None, None],
-            iteration=st.iteration + S,
+            iteration=st.iteration + 1,
             rel_change=jnp.asarray(rc)[None, None],
             weights=w[None],
             mu=jnp.asarray(mu)[None, None],

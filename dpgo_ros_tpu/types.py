@@ -1,11 +1,11 @@
-"""Core data types for the TPU-native distributed pose-graph-optimization framework.
+"""Core data types for the distributed pose-graph-optimization framework.
 
 Capability parity targets (see SURVEY.md §2.3): the reference framework's
 ``DPGO::RelativeSEMeasurement {r1,r2,p1,p2,R,t,kappa,tau,weight,fixedWeight}``
 (reference ``src/utils.cpp:128-152``) and ``PoseID {robot_id, frame_id}``
 (reference ``include/dpgo_ros/PGOAgentROS.h:189``).
 
-Design note (TPU-first): measurements are stored struct-of-arrays with static
+Design note: measurements are stored struct-of-arrays with static
 shapes so the whole problem lowers to XLA with no per-edge Python objects.
 """
 

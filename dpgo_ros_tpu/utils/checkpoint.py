@@ -3,7 +3,7 @@
 The reference has *no* persistence: its checkpoint subsystem is in-memory
 warm-start caches across optimization rounds, lost on process death
 (SURVEY.md §5.4, ``src/PGOAgentROS.cpp:354-361,1391-1456``). A production
-fleet solver needs durable state — a preempted TPU job or a rebooted robot
+fleet solver needs durable state — a preempted accelerator job or a rebooted robot
 must be able to resume mid-solve. This module provides that capability:
 
 * ``save_state`` / ``load_state`` — one ``RBCDState`` pytree (plus the

@@ -18,7 +18,7 @@ from typing import Optional
 class UpdateRule(enum.Enum):
     """Block-selection rule for synchronous RBCD (reference
     ``PGOAgentROSParameters::UpdateRule``, ``PGOAgentROS.h:35-38``) plus the
-    TPU-native PARALLEL generalization (all blocks update simultaneously
+    PARALLEL generalization (all blocks update simultaneously
     against last-iteration separators — ASAPP with delay 0, SURVEY.md §2.4)."""
 
     UNIFORM = "Uniform"
@@ -131,7 +131,7 @@ class AgentConfig:
     robust_opt_num_resets: int = 0
     robust_opt_min_convergence_ratio: float = 0.0
     robust_opt_inner_iters_per_robot: int = 10
-    # Convergence-gated GNC weight rounds (TPU-build extension; None =
+    # Convergence-gated GNC weight rounds (extension; None =
     # reference fixed-cadence semantics). When set, a weight round fires as
     # soon as EVERY robot's rel-change has fallen below this tolerance —
     # i.e. each graduated subproblem is solved to (approximate) convergence
@@ -175,8 +175,8 @@ class AgentConfig:
     log_directory: Optional[str] = None
     verbose: bool = False
 
-    # framework extras (TPU build)
-    dtype: str = "float64"  # "float32" on TPU
+    # framework extras
+    dtype: str = "float64"  # the CLI defaults to "float32" on the device
     seed: int = 42
     # ASAPP stepsize decay time-constant T0 (ticks): stepsize_t =
     # RGD_stepsize * T0/(T0+t). 0 disables (reference constant-rate
@@ -187,30 +187,9 @@ class AgentConfig:
     # This is a different scale from the sync rel-change tolerance (one tick
     # = one RGD step vs one full block trust-region solve), so it gets its
     # own knob: 0.2-scale sync tolerances fire on the very first async tick.
-    # 1e-3 reproduces the recorded torus3D/sphere baselines; parking-garage
-    # (tiny optimum) wants 1e-4 (scripts/run_baselines.py §4).
+    # 1e-3 suits sphere/torus-scale costs; a world with a tiny optimum
+    # (parking-garage) wants 1e-4.
     asapp_tolerance: float = 1e-3
-    # single-Pallas-kernel RTR block solve (ops/fused_rtr.py): None = auto
-    # (enabled on a TPU backend with fp32 + RTR); False forces the XLA path;
-    # True forces the kernel (interpreter mode off-TPU — tests only)
-    use_fused_kernel: Optional[bool] = None
-    # SPMD mesh program: solver steps executed INSIDE one kernel launch per
-    # mesh slot between separator all_gathers (parallel/spmd.py). S > 1 =
-    # each device runs S color-scheduled block updates against
-    # stretch-start separators — exactly the bounded-staleness semantics of
-    # the reference's maxDelayedIterations / ASAPP modes
-    # (``include/dpgo_ros/PGOAgentROS.h:62-63``), amortizing per-launch
-    # overhead S-fold. 1 = the per-step program (exact colored RBCD).
-    # Requires the fused kernel; silently 1 on the XLA fallback path.
-    spmd_steps_per_launch: int = 1
-    # Stretch step rule: None = trust-region block solves on the in-kernel
-    # schedule (EXACT when the mesh has one slot — no staleness; measured
-    # to diverge from cold inits on multi-slot meshes, where simultaneous
-    # full block solves against stale separators are a Jacobi overshoot);
-    # a float = preconditioned Riemannian-gradient ticks of that stepsize
-    # (the ASAPP update rule — staleness-robust, the multi-slot default
-    # choice; reference ``launch/asapp_demo.launch`` stepsize 0.2).
-    spmd_stretch_rgd_stepsize: Optional[float] = None
     # Exchange ONLY separator poses between mesh slots (the reference's
     # core bandwidth idea — ``msg/PublicPoses.msg`` carries nothing else):
     # non-separator lanes of other slots are mathematically irrelevant to

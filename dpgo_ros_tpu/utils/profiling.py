@@ -3,13 +3,12 @@
 The reference's profiling is a ``std::chrono`` wall-clock around
 ``iterate(true)`` plus a per-iteration CSV (SURVEY.md §5.1,
 ``src/PGOAgentROS.cpp:159-162,853-894``); the CSV schema lives in
-``utils/telemetry.py``. This module adds the TPU-native layer the reference
+``utils/telemetry.py``. This module adds the device-side layer the reference
 lacks:
 
 * ``device_trace(dir)`` — context manager around ``jax.profiler.trace``:
   captures an XLA device trace (HLO op timeline, fusion costs, HBM traffic)
-  viewable in TensorBoard / Perfetto. This is how the per-op numbers in
-  ``docs/PERFORMANCE.md`` were measured.
+  viewable in TensorBoard / Perfetto.
 * ``annotate(name)`` — ``jax.profiler.TraceAnnotation`` wrapper so host-side
   phases (init, weight rounds, export) show up on the same timeline.
 * ``PhaseTimer`` — lightweight wall-clock phase accounting (JSON-dumpable),

@@ -1,6 +1,6 @@
 """Self-contained HTML/SVG visualization of fleet solutions.
 
-The TPU framework's replacement for the reference's rviz configuration
+The framework's replacement for the reference's rviz configuration
 (``rviz/default.rviz``: 8 Path + 8 Marker displays; trajectory publishing at
 ``src/PGOAgentROS.cpp:629-660``, loop-closure markers colored by GNC weight —
 green=accepted, red=rejected, blue=undecided — at ``:756-843``). Produces a

@@ -1,6 +1,6 @@
 // Native dataset-ingestion library for dpgo_ros_tpu.
 //
-// TPU-native counterpart of the reference's C++ ingestion path
+// Native counterpart of the reference's C++ ingestion path
 // (DPGO::read_g2o_file + PGOLogger::loadMeasurements, used by
 // src/PGODatasetPublisherNode.cpp:80,168): parses g2o pose-graph files and
 // per-robot measurements.csv into flat arrays consumed zero-copy by the

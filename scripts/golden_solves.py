@@ -1,18 +1,13 @@
-"""Certified golden optima for every bundled g2o dataset.
+"""Certified golden optima of the small generated worlds (CPU, fp64).
 
 Runs the centralized Riemannian-staircase certified solve
-(``models/certified.py``) at fp64 on each dataset and records the certified
-global optimum, closing VERDICT round-2 item #4 (parking-garage golden) and
-upgrading the whole docs/PERFORMANCE.md golden table from "tight solve" to
-"certified global optimum of our dataset copy" — which settles the
-sphere2500 1693.5-vs-1687.0 question as a dataset-copy difference by proof
-rather than by assumption (the SE-Sync published f* belongs to a different
-copy of the file; ours is certified optimal for ours).
+(``models/certified.py``) at fp64 on each world and records the certified
+global optimum in ``golden_optima.json`` at the repo root (merge semantics:
+re-running a subset of worlds updates only those entries). The tests pin
+their convergence goldens to these values. The 2,500-pose and GNC worlds are
+certified on the GPU by ``chip_smoke.py`` instead.
 
-Writes ``golden_optima.json`` at the repo root (merge semantics: re-running
-a subset of datasets updates only those entries).
-
-Usage: python scripts/golden_solves.py [dataset ...]
+Usage: python scripts/golden_solves.py [world ...]
 """
 
 import json
@@ -22,54 +17,30 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+from dpgo_ros_tpu.utils import hostenv
 
-jax.config.update("jax_platforms", "cpu")
+hostenv.select_platform("cpu", 1)
+
+import jax  # noqa: E402
+
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_cpu")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+hostenv.setup_compile_cache()
 
-from dpgo_ros_tpu.io.datasets import load_g2o_dataset
-from dpgo_ros_tpu.models.certified import certified_solve
+from dpgo_ros_tpu.io.datasets import load_world  # noqa: E402
+from dpgo_ros_tpu.models.certified import certified_solve  # noqa: E402
 
-OUT = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "golden_optima.json",
-)
+OUT = os.path.join(hostenv.REPO_ROOT, "golden_optima.json")
 
-# SE-Sync published global optima (Rosen et al., IJRR 2019, Table 3) for
-# datasets of the same name — provenance cross-check only; the bundled
-# copies may differ (sphere2500 demonstrably does).
-SESYNC_F = {
-    "sphere2500": 1687.0,
-    "parking-garage": 1.26,
-    "cubicle": 717.1,
-    "torus3D": 24227.0,
-}
-
-# per-dataset solver budgets: (rtr_rounds, lanczos note) — the ill-
-# conditioned parking garage needs a deep tCG budget to grind the long
-# corridor modes; the bigger sets just need wall-clock.
-CONFIGS = {
-    "tinyGrid3D": dict(),
-    "smallGrid3D": dict(),
-    "parking-garage": dict(
-        rtr_iterations=400, rtr_tcg_iterations=1000, rtr_rounds=40,
-        gradnorm_tol=1e-7,
-    ),
-    "sphere2500": dict(rtr_rounds=30, gradnorm_tol=1e-6),
-    "torus3D": dict(rtr_rounds=30, gradnorm_tol=1e-6),
-    "cubicle": dict(rtr_rounds=30, gradnorm_tol=1e-6),
-}
+WORLDS = ("synthetic_grid9", "synthetic_grid125")
 
 
 def main():
-    names = sys.argv[1:] or list(CONFIGS)
+    names = sys.argv[1:] or list(WORLDS)
     for a in names:
-        if a not in CONFIGS:
+        if a not in WORLDS:
             sys.exit(
-                f"golden_solves.py: unknown dataset {a!r} "
-                f"(choose from {sorted(CONFIGS)})"
+                f"golden_solves.py: unknown world {a!r} "
+                f"(choose from {sorted(WORLDS)})"
             )
     results = {}
     if os.path.exists(OUT):
@@ -78,8 +49,8 @@ def main():
     for name in names:
         t0 = time.time()
         print(f"=== {name} ===", flush=True)
-        data = load_g2o_dataset(name, num_robots=1)
-        res = certified_solve(data, verbose=True, **CONFIGS[name])
+        data = load_world(name, num_robots=1)[0]
+        res = certified_solve(data, verbose=True)
         entry = {
             "certified_global_optimum": res.cost,
             "rounded_cost": res.rounded_cost,
@@ -89,11 +60,9 @@ def main():
             "ranks_tried": list(res.ranks_tried),
             "min_eig": res.min_eig,
             "crit_residual": res.crit_residual,
-            "sesync_published_f": SESYNC_F.get(name),
-            "wall_sec": round(time.time() - t0, 1),
         }
         results[name] = entry
-        print(f"{name}: {entry}", flush=True)
+        print(f"{name}: {entry} ({time.time() - t0:.1f} s)", flush=True)
         with open(OUT, "w") as f:
             json.dump(results, f, indent=2)
     print(f"wrote {OUT}", flush=True)

@@ -1,9 +1,10 @@
 """Multi-host SPMD RBCD demo — launch once per process.
 
-Validates SURVEY.md §7 step 8 (pjit over ≥2 hosts, robots axis over DCN)
-without TPU-pod hardware: N CPU processes × k virtual devices each form a
-global N·k-device mesh with Gloo collectives standing in for DCN. The same
-command shape works on a real multi-host TPU slice (drop --platform/--local_devices).
+Validates SURVEY.md §7 step 8 (pjit over ≥2 hosts, robots axis across
+hosts) on CPU: N CPU processes × k virtual devices each form a global
+N·k-device mesh with Gloo collectives standing in for the network. It is a
+CPU-only demo: a GPU host runs one process per card set, and this repo's
+GPU path is one process (``chip_smoke.py``).
 
     python scripts/multihost_demo.py --num_processes 2 --process_id 0 &
     python scripts/multihost_demo.py --num_processes 2 --process_id 1 &
@@ -29,9 +30,8 @@ def main() -> None:
     ap.add_argument("--coordinator", default="localhost:12360")
     ap.add_argument("--num_processes", type=int, required=True)
     ap.add_argument("--process_id", type=int, required=True)
-    ap.add_argument("--platform", default="cpu")
     ap.add_argument("--local_devices", type=int, default=4)
-    ap.add_argument("--dataset", default="smallGrid3D")
+    ap.add_argument("--dataset", default="synthetic_grid125")
     ap.add_argument("--steps", type=int, default=24)
     ap.add_argument("--rank", type=int, default=5)
     ap.add_argument("--checkpoint_dir", default=None,
@@ -44,7 +44,7 @@ def main() -> None:
         a.coordinator,
         a.num_processes,
         a.process_id,
-        platform=a.platform if a.platform != "native" else None,
+        platform="cpu",
         local_device_count=a.local_devices,
     )
 
@@ -52,12 +52,11 @@ def main() -> None:
     import jax.numpy as jnp
     import numpy as np
 
-    cache = f"/tmp/jax_cache_{jax.default_backend()}"
-    os.makedirs(cache, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from dpgo_ros_tpu.utils import hostenv
 
-    from dpgo_ros_tpu.io.datasets import load_g2o_dataset
+    hostenv.setup_compile_cache()
+
+    from dpgo_ros_tpu.io.datasets import load_dataset
     from dpgo_ros_tpu.models.problem import LiftedProblem
     from dpgo_ros_tpu.ops import quadratic
     from dpgo_ros_tpu.parallel.rbcd import RBCDEngine
@@ -77,7 +76,7 @@ def main() -> None:
     )
 
     # Every process builds the identical replicated problem (deterministic).
-    data = load_g2o_dataset(a.dataset, num_robots=M)
+    data = load_dataset(a.dataset, num_robots=M)
     prob = LiftedProblem.from_data(data, r=a.rank)
     cfg = AgentConfig(
         num_robots=M,

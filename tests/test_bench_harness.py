@@ -9,7 +9,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from dpgo_ros_tpu.io.datasets import load_g2o_dataset
+from dpgo_ros_tpu.io.datasets import load_dataset
 from dpgo_ros_tpu.models.problem import LiftedProblem
 from dpgo_ros_tpu.ops import quadratic
 from dpgo_ros_tpu.parallel.rbcd import RBCDEngine
@@ -28,7 +28,7 @@ def _load_bench():
 
 def test_gauge_perturbation_preserves_cost_and_manifold():
     bench = _load_bench()
-    data = load_g2o_dataset("tinyGrid3D", num_robots=1)
+    data = load_dataset("synthetic_grid9", num_robots=1)
     prob = LiftedProblem.from_data(data, r=5, dtype=jnp.float32)
     eng = RBCDEngine(prob, AgentConfig(num_robots=1, dtype="float32"))
     st = eng.initialize()

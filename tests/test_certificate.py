@@ -1,7 +1,7 @@
 """Global-optimality certificate + Riemannian staircase tests.
 
 The certificate (ops/certificate.py) is the capability the reference cites
-but never implements (``/root/reference/README.md:79-112`` — SE-Sync-style
+but never implements (reference ``README.md:79-112`` — SE-Sync-style
 certifiable correctness): S = Q − Λ̂ must be PSD at a global optimum. These
 tests pin the operator against a dense materialization, certify the known
 tinyGrid3D optimum, and run the full staircase escape from a genuinely
@@ -13,18 +13,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dpgo_ros_tpu.io.datasets import load_g2o_dataset
+from dpgo_ros_tpu.io.datasets import golden_optimum, load_dataset
 from dpgo_ros_tpu.models.certified import _tight_rtr, certified_solve
 from dpgo_ros_tpu.models.local_solvers import RTRParams
 from dpgo_ros_tpu.ops import certificate, quadratic, stiefel
 
-TINY_OPT = 18.519366
+TINY_OPT = golden_optimum("synthetic_grid9")
 
 
 def _tiny_problem(r):
     from dpgo_ros_tpu.models.problem import LiftedProblem
 
-    data = load_g2o_dataset("tinyGrid3D", num_robots=1)
+    data = load_dataset("synthetic_grid9", num_robots=1)
     return LiftedProblem.from_data(data, r=r)
 
 
@@ -65,7 +65,7 @@ def test_certificate_operator_matches_dense():
 
 def test_certified_solve_tinygrid_is_global():
     res = certified_solve(
-        load_g2o_dataset("tinyGrid3D", num_robots=1)
+        load_dataset("synthetic_grid9", num_robots=1)
     )
     assert res.certified
     assert res.cost == pytest.approx(TINY_OPT, abs=1e-3)

@@ -15,7 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dpgo_ros_tpu.io.datasets import load_g2o_dataset
+from dpgo_ros_tpu.io.datasets import load_dataset
 from dpgo_ros_tpu.models.problem import LiftedProblem
 from dpgo_ros_tpu.parallel.rbcd import RBCDEngine, RBCDState
 from dpgo_ros_tpu.utils import checkpoint as ckpt
@@ -24,7 +24,7 @@ from dpgo_ros_tpu.utils.config import AgentConfig, InitMethod, UpdateRule
 
 @pytest.fixture(scope="module")
 def setup():
-    data = load_g2o_dataset("tinyGrid3D", num_robots=2)
+    data = load_dataset("synthetic_grid9", num_robots=2)
     prob = LiftedProblem.from_data(data, r=5, dtype=jnp.float32)
     cfg = AgentConfig(
         num_robots=2,
@@ -112,7 +112,7 @@ def test_cli_checkpoint_resume(tmp_path):
     cdir = str(tmp_path / "ck")
     out = main(
         [
-            "--dataset", "tinyGrid3D", "--num_robots", "2",
+            "--dataset", "synthetic_grid9", "--num_robots", "2",
             "--platform", "cpu", "--update_rule", "RoundRobin",
             "--local_initialization_method", "Odometry",
             "--max_iteration_number", "7",
@@ -126,7 +126,7 @@ def test_cli_checkpoint_resume(tmp_path):
     assert 3 in steps and 6 in steps and 7 in steps  # cadence + final
     out = main(
         [
-            "--dataset", "tinyGrid3D", "--num_robots", "2",
+            "--dataset", "synthetic_grid9", "--num_robots", "2",
             "--platform", "cpu", "--update_rule", "RoundRobin",
             "--local_initialization_method", "Odometry",
             "--max_iteration_number", "12",
@@ -159,7 +159,7 @@ def test_cli_spmd_checkpoint_resume_bitexact(tmp_path, capsys):
     from dpgo_ros_tpu.cli import main
 
     base = [
-        "--dataset", "tinyGrid3D", "--num_robots", "2", "--mode", "spmd",
+        "--dataset", "synthetic_grid9", "--num_robots", "2", "--mode", "spmd",
         "--platform", "cpu", "--relative_change_tolerance", "0",
     ]
 
@@ -191,7 +191,7 @@ def test_cli_async_checkpoint_resume_bitexact(tmp_path, capsys):
     from dpgo_ros_tpu.cli import main
 
     base = [
-        "--dataset", "tinyGrid3D", "--num_robots", "2", "--mode", "async",
+        "--dataset", "synthetic_grid9", "--num_robots", "2", "--mode", "async",
         "--platform", "cpu", "--update_rule", "RoundRobin",
         "--local_initialization_method", "Odometry",
         "--relative_change_tolerance", "0",
@@ -221,10 +221,10 @@ def test_fleet_checkpoint_warm_resume(tmp_path):
     across-round state, PGOAgentROS.cpp:354-361,1072-1075) survive a process
     death — a restored fleet starts its round from the optimized trajectory
     and converges in no more iterations than the cold run."""
-    from dpgo_ros_tpu.io.datasets import load_g2o_dataset
+    from dpgo_ros_tpu.io.datasets import load_dataset
     from dpgo_ros_tpu.parallel.controller import DistributedController
 
-    data = load_g2o_dataset("tinyGrid3D", num_robots=2)
+    data = load_dataset("synthetic_grid9", num_robots=2)
     cfg = AgentConfig(
         num_robots=2,
         update_rule=UpdateRule.ROUND_ROBIN,

@@ -3,6 +3,7 @@
 import numpy as np
 
 from dpgo_ros_tpu.cli import apply_demo, args_to_config, build_parser
+from dpgo_ros_tpu.io.datasets import golden_optimum
 from dpgo_ros_tpu.utils.config import (
     InitMethod,
     RobustCostType,
@@ -123,7 +124,7 @@ def test_cli_dtype_float64_enables_x64():
     out = subprocess.run(
         [
             sys.executable, "-m", "dpgo_ros_tpu.cli",
-            "--dataset", "tinyGrid3D", "--platform", "cpu",
+            "--dataset", "synthetic_grid9", "--platform", "cpu",
             "--dtype", "float64",
             "--relative_change_tolerance", "1e-6",
             "--RTR_gradnorm_tol", "1e-9",
@@ -133,4 +134,63 @@ def test_cli_dtype_float64_enables_x64():
     assert out.returncode == 0, out.stderr[-2000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     # fp64 reaches the certified optimum to ~1e-9; fp32 is ~3e-6 off
-    assert abs(res["final_cost"] - 18.519366421304092) < 1e-7
+    assert abs(res["final_cost"] - golden_optimum("synthetic_grid9")) < 1e-7
+
+
+def _run_off_gpu(args):
+    """Run a repo entry point in a fresh CPU-only process."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=repo)
+    return subprocess.run(
+        [sys.executable, *args], env=env, cwd=repo,
+        capture_output=True, text=True, timeout=300,
+    )
+
+
+def test_platform_gpu_fails_cleanly_without_a_card():
+    """``--platform gpu`` (the default) never falls back to the CPU: with
+    no card the CLI exits 2 with a one-line error and prints no result."""
+    out = _run_off_gpu(
+        ["-m", "dpgo_ros_tpu.cli", "--dataset", "synthetic_grid9",
+         "--platform", "gpu"]
+    )
+    assert out.returncode == 2
+    assert out.stdout == ""
+    assert "no GPU" in out.stderr and "Traceback" not in out.stderr
+
+
+def test_bench_refuses_to_run_off_gpu():
+    out = _run_off_gpu(["bench.py"])
+    assert out.returncode != 0
+    assert out.stdout == ""
+    assert "GPU" in out.stderr
+
+
+def test_bundled_dataset_without_data_dir_is_an_error():
+    """A bundled name never silently becomes a generated world."""
+    out = _run_off_gpu(
+        ["-m", "dpgo_ros_tpu.cli", "--dataset", "sphere2500",
+         "--platform", "cpu"]
+    )
+    assert out.returncode == 2
+    assert out.stdout == ""
+    assert "DPGO_TPU_DATA_DIR" in out.stderr
+
+
+def test_demo_presets_use_generated_worlds():
+    for demo, world in (("dpgo_demo", "synthetic_sphere2500"),
+                        ("asapp_demo", "synthetic_sphere2500"),
+                        ("dpgo_gnc_demo", "synthetic_gnc8")):
+        a = build_parser().parse_args(["--demo", demo])
+        apply_demo(a)
+        assert a.dataset == world
+    # an explicit dataset wins over the preset's world
+    a = build_parser().parse_args(
+        ["--demo", "dpgo_demo", "--dataset", "synthetic_grid125"]
+    )
+    apply_demo(a)
+    assert a.dataset == "synthetic_grid125"

@@ -8,7 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dpgo_ros_tpu.io.datasets import load_g2o_dataset
+from dpgo_ros_tpu.io.datasets import golden_optimum, load_dataset
+
+TINY_OPT = golden_optimum("synthetic_grid9")
 from dpgo_ros_tpu.models.problem import LiftedProblem
 from dpgo_ros_tpu.ops import quadratic, stiefel
 from dpgo_ros_tpu.parallel.comm import LossyTransport, PerfectTransport
@@ -44,19 +46,19 @@ def _global_cost(data, T):
 
 
 def test_fleet_matches_centralized():
-    data = load_g2o_dataset("tinyGrid3D", num_robots=2)
+    data = load_dataset("synthetic_grid9", num_robots=2)
     ctl = DistributedController(data, _cfg(2))
     res = ctl.run(max_ticks=2000)
     assert all(res["terminated"])
     T = ctl.global_trajectory(res)
     assert T is not None and T.shape == (9, 3, 4)
-    # distributed protocol reaches the centralized optimum (~18.52)
-    assert _global_cost(data, T) < 18.52 * 1.05
+    # distributed protocol reaches the centralized optimum (certified)
+    assert _global_cost(data, T) < TINY_OPT * 1.05
     assert res["messages_sent"] > 0
 
 
 def test_fleet_telemetry_csv(tmp_path):
-    data = load_g2o_dataset("tinyGrid3D", num_robots=2)
+    data = load_dataset("synthetic_grid9", num_robots=2)
     cfg = _cfg(2, log_directory=str(tmp_path))
     ctl = DistributedController(data, cfg)
     ctl.run(max_ticks=2000)
@@ -73,7 +75,7 @@ def test_fleet_telemetry_csv(tmp_path):
 def test_fleet_lossy_transport_still_converges():
     """20% message drops + 1-tick delay: the retry/timeout machinery must
     still drive the round to completion."""
-    data = load_g2o_dataset("tinyGrid3D", num_robots=2)
+    data = load_dataset("synthetic_grid9", num_robots=2)
     cfg = _cfg(2, timeout_threshold=10.0)
     tr = LossyTransport(2, drop_prob=0.2, delay_ticks=1, seed=3)
     ctl = DistributedController(data, cfg, transport=tr)
@@ -81,7 +83,7 @@ def test_fleet_lossy_transport_still_converges():
     assert all(res["terminated"])
     T = ctl.global_trajectory(res)
     assert T is not None
-    assert _global_cost(data, T) < 18.52 * 1.10
+    assert _global_cost(data, T) < TINY_OPT * 1.10
 
 
 @pytest.mark.slow
@@ -89,7 +91,7 @@ def test_dead_robot_recovery():
     """Kill a robot mid-solve: the leader must time out, shrink the active
     set, broadcast RECOVER, and finish with the survivors (reference
     ``checkTimeout`` semantics, ``PGOAgentROS.cpp:1515-1575``)."""
-    data = load_g2o_dataset("smallGrid3D", num_robots=3)
+    data = load_dataset("synthetic_grid125", num_robots=3)
     cfg = _cfg(3, enable_recovery=True, timeout_threshold=8.0, tol=0.3)
     tr = LossyTransport(3)
     ctl = DistributedController(data, cfg, transport=tr)
@@ -120,7 +122,7 @@ def test_dead_robot_recovery():
 def test_gnc_fleet_rejects_outlier():
     """Inject a gross outlier shared loop closure; the distributed GNC
     rounds must drive its weight to 0 while keeping true edges."""
-    data = load_g2o_dataset("tinyGrid3D", num_robots=2)
+    data = load_dataset("synthetic_grid9", num_robots=2)
     m = data.measurements
     # fabricate an outlier between robot0 pose1 and robot1 pose2
     out = m.select(np.asarray([len(m) - 1]))
@@ -178,7 +180,7 @@ def test_gnc_weight_freezing_and_fixed_replication():
     (``weightConvergenceThreshold``) and the ``fixed`` flags must replicate
     to the non-owner (reference ``PGOAgentROS.cpp:1315-1353``); a frozen
     weight survives later weight rounds unchanged."""
-    data = load_g2o_dataset("tinyGrid3D", num_robots=2)
+    data = load_dataset("synthetic_grid9", num_robots=2)
     m = data.measurements
     out = m.select(np.asarray([len(m) - 1]))
     out.src_robot[:] = 0
@@ -234,7 +236,7 @@ def test_gnc_weight_freezing_and_fixed_replication():
 def test_warm_start_across_rounds():
     """Round 2 must reuse the cached optimized trajectory (reference
     warm-start across instances) and converge in fewer block updates."""
-    data = load_g2o_dataset("tinyGrid3D", num_robots=2)
+    data = load_dataset("synthetic_grid9", num_robots=2)
     ctl = DistributedController(data, _cfg(2))
     res1 = ctl.run(max_ticks=2000)
     it1 = sum(res1["iterations"].values())
@@ -247,7 +249,7 @@ def test_warm_start_across_rounds():
     assert all(res2["terminated"])
     assert it2 <= it1
     T = ctl.global_trajectory(res2)
-    assert _global_cost(data, T) < 18.52 * 1.05
+    assert _global_cost(data, T) < TINY_OPT * 1.05
 
 
 @pytest.mark.slow
@@ -255,7 +257,7 @@ def test_partitioned_fleet_forms_two_clusters():
     """A link partition splits the fleet: each component elects its lowest
     id as leader (reference cluster re-election, ``PGOAgentROS.cpp:1478-1486``)
     and solves independently."""
-    data = load_g2o_dataset("smallGrid3D", num_robots=3)
+    data = load_dataset("synthetic_grid125", num_robots=3)
     cfg = _cfg(3, tol=0.3, timeout_threshold=8.0)
     # robot 2 unreachable from 0 and 1
     tr = LossyTransport(3, partitioned=[(0, 2), (1, 2)])
@@ -271,7 +273,7 @@ def test_partitioned_fleet_forms_two_clusters():
 
 
 def test_cluster_id_is_min_active():
-    data = load_g2o_dataset("tinyGrid3D", num_robots=2)
+    data = load_dataset("synthetic_grid9", num_robots=2)
     ctl = DistributedController(data, _cfg(2))
     a = ctl.agents[1]
     assert a.cluster_id == 0

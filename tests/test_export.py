@@ -5,14 +5,14 @@ import os
 
 import numpy as np
 
-from dpgo_ros_tpu.io.datasets import load_g2o_dataset
+from dpgo_ros_tpu.io.datasets import load_dataset
 from dpgo_ros_tpu.io.g2o import read_g2o
 from dpgo_ros_tpu.utils import export
 from dpgo_ros_tpu.utils.telemetry import public_poses_msg_bytes
 
 
 def test_export_solution_files(tmp_path):
-    data = load_g2o_dataset("tinyGrid3D", num_robots=2)
+    data = load_dataset("synthetic_grid9", num_robots=2)
     n = data.total_poses
     T = np.zeros((n, 3, 4))
     T[:, :, :3] = np.eye(3)
@@ -53,7 +53,7 @@ def test_show_loops_gates_html_overlay(tmp_path):
     """``show_loops=False`` (reference ``visualize_loop_closures`` false,
     ``PGOAgent.launch:42``) omits the loop-closure polylines from the HTML
     while leaving the g2o/TUM/JSON dumps untouched."""
-    data = load_g2o_dataset("tinyGrid3D", num_robots=2)
+    data = load_dataset("synthetic_grid9", num_robots=2)
     n = data.total_poses
     T = np.zeros((n, 3, 4))
     T[:, :, :3] = np.eye(3)

@@ -15,7 +15,7 @@ import time
 import numpy as np
 import pytest
 
-from dpgo_ros_tpu.io.datasets import load_g2o_dataset, load_tunnels
+from dpgo_ros_tpu.io.datasets import load_dataset
 from dpgo_ros_tpu.parallel.agent_node import DatasetServer
 from dpgo_ros_tpu.parallel.frontend import (
     PoseGraphPublisher,
@@ -50,11 +50,11 @@ def _spawn_server(dataset, num_robots, output=None):
 def test_frontend_two_process_pose_graphs_match_local():
     """Per-robot pose graphs served across the process boundary are
     field-exact equal to the in-process DatasetServer's."""
-    proc, host, port = _spawn_server("tinyGrid3D", 2)
+    proc, host, port = _spawn_server("synthetic_grid9", 2)
     try:
         cli = RemoteDatasetServer(host, port)
         nR, d, num_poses = cli.meta()
-        data = load_g2o_dataset("tinyGrid3D", num_robots=2)
+        data = load_dataset("synthetic_grid9", num_robots=2)
         assert nR == 2 and d == data.d
         np.testing.assert_array_equal(num_poses, data.num_poses)
         local = DatasetServer(data)
@@ -84,7 +84,7 @@ def test_frontend_two_process_fleet_solve(tmp_path):
     pose-graph pull crosses the socket — then publishes the solved
     trajectories back; the server writes them to disk."""
     out_dir = str(tmp_path / "served")
-    proc, host, port = _spawn_server("tinyGrid3D", 2, output=out_dir)
+    proc, host, port = _spawn_server("synthetic_grid9", 2, output=out_dir)
     try:
         from dpgo_ros_tpu import cli as cli_mod
 
@@ -107,7 +107,7 @@ def test_frontend_two_process_fleet_solve(tmp_path):
             os.path.exists(p) for p in want
         ):
             time.sleep(0.1)
-        data = load_g2o_dataset("tinyGrid3D", num_robots=2)
+        data = load_dataset("synthetic_grid9", num_robots=2)
         for k, p in enumerate(want):
             T = np.load(p)
             assert T.shape == (int(data.num_poses[k]), data.d, data.d + 1)
@@ -118,18 +118,17 @@ def test_frontend_two_process_fleet_solve(tmp_path):
 
 
 def test_frontend_serves_tunnels():
-    """The 8-robot tunnels CSV dataset (the GNC demo's data) served
-    across the process boundary: per-robot slices match the local
-    loader's measurement counts and full-data fetch is exact."""
-    proc, host, port = _spawn_server("tunnels", 8)
+    """The GNC demo's 8-robot world served across the process boundary:
+    per-robot slices match the local loader's measurement counts and
+    full-data fetch is exact."""
+    proc, host, port = _spawn_server("synthetic_gnc8", 8)
     try:
         cli = RemoteDatasetServer(host, port)
         nR, d, num_poses = cli.meta()
         assert nR == 8 and d == 3
-        data = load_tunnels(num_robots=8)
-        # 8,439 raw CSV rows dedupe to one entry per shared edge globally
+        data = load_dataset("synthetic_gnc8", num_robots=8)
         E = len(data.measurements)
-        assert E > 4000
+        assert E == 3954
         local = DatasetServer(data)
         for k in (0, 3, 7):
             m_r, n_r = cli.request_pose_graph(k)

@@ -4,7 +4,7 @@ the reference lacks — SURVEY.md §4)."""
 import numpy as np
 import pytest
 
-from dpgo_ros_tpu.io.datasets import load_g2o_dataset
+from dpgo_ros_tpu.io.datasets import load_dataset
 from dpgo_ros_tpu.models.problem import LiftedProblem
 from dpgo_ros_tpu.parallel.rbcd import RBCDEngine
 from dpgo_ros_tpu.types import EdgeType, MeasurementBatch
@@ -65,7 +65,7 @@ def test_gnc_tls_local_init_beats_odometry_under_outliers():
     """GNC_TLS robust local initialization (reference
     ``localInitializationMethod=GNC_TLS``) must produce a lower-cost init
     than plain chordal when private loop closures contain gross outliers."""
-    data = load_g2o_dataset("smallGrid3D", num_robots=1)
+    data = load_dataset("synthetic_grid125", num_robots=1)
     data, is_outlier = inject_outliers(data, frac=0.15, seed=3)
     prob = LiftedProblem.from_data(data, r=5)
 
@@ -99,7 +99,7 @@ def test_gnc_tls_local_init_beats_odometry_under_outliers():
 def test_gnc_engine_outlier_precision_recall():
     """smallGrid3D + 20% injected gross outliers: GNC must reject (almost)
     all outliers and keep (almost) all true loop closures."""
-    data = load_g2o_dataset("smallGrid3D", num_robots=2)
+    data = load_dataset("synthetic_grid125", num_robots=2)
     data, is_outlier = inject_outliers(data, frac=0.2, seed=1)
     prob = LiftedProblem.from_data(data, r=5)
     cfg = AgentConfig(
@@ -134,16 +134,13 @@ def test_gnc_engine_outlier_precision_recall():
     assert info["final_cost"] < 1e5
 
 
-def test_multistep_runner_fires_convergence_gated_weight_rounds(monkeypatch):
-    """Regression (ADVICE r4, high): the multi-step fused runner padded the
-    relative-change row with +inf before the weight-round fire check, so the
-    ``robust_opt_inner_tol`` clause could never be satisfied and
-    convergence-gated GNC weight rounds only fired at the cadence cap.
-    Both fused runner generations must fire on the tolerance clause (well
-    before the cadence) and complete all weight rounds."""
+def test_fused_runner_fires_convergence_gated_weight_rounds():
+    """The ``robust_opt_inner_tol`` clause fires GNC weight rounds in the
+    one-program runner (``make_fused_run``) well before the cadence cap,
+    and every scheduled weight round completes."""
     import jax.numpy as jnp
 
-    data = load_g2o_dataset("tinyGrid3D", num_robots=1)
+    data = load_dataset("synthetic_grid9", num_robots=1)
     data, _ = inject_outliers(data, frac=0.2, seed=3)
     prob = LiftedProblem.from_data(data, r=5, dtype=jnp.float32)
     cfg = AgentConfig(
@@ -158,20 +155,14 @@ def test_multistep_runner_fires_convergence_gated_weight_rounds(monkeypatch):
         relative_change_tolerance=1e-3,
         RTR_gradnorm_tol=0.5,
         max_iteration_number=60,
-        use_fused_kernel=True,
         dtype="float32",
     )
     cadence = cfg.robust_opt_inner_iters_per_robot * cfg.num_robots
-    results = {}
-    for flag in ("1", "0"):  # multistep runner vs per-step runner
-        monkeypatch.setenv("DPGO_FUSED_MULTISTEP", flag)
-        eng = RBCDEngine(prob, cfg)
-        st0 = eng.initialize()
-        st, _, ev = eng.make_fused_run(60, record=True)(st0)
-        results[flag] = (int(st.weight_update_count), np.flatnonzero(ev))
-    for flag, (wuc, fires) in results.items():
-        assert wuc == 2, (flag, wuc)
-        assert fires.size >= 1 and fires[0] < cadence, (flag, fires)
+    eng = RBCDEngine(prob, cfg)
+    st, _, ev = eng.make_fused_run(60, record=True)(eng.initialize())
+    fires = np.flatnonzero(ev)
+    assert int(st.weight_update_count) == 2
+    assert fires.size >= 1 and fires[0] < cadence, fires
 
 
 @pytest.mark.parametrize("rtype", [RobustCostType.TLS, RobustCostType.GM,
@@ -180,7 +171,7 @@ def test_multistep_runner_fires_convergence_gated_weight_rounds(monkeypatch):
 def test_irls_robust_costs_reject_outliers(rtype):
     """The non-GNC robust kernels (IRLS reweighting rounds) must also
     suppress gross outliers (reference RobustCost family)."""
-    data = load_g2o_dataset("tinyGrid3D", num_robots=1)
+    data = load_dataset("synthetic_grid9", num_robots=1)
     data, is_outlier = inject_outliers(data, frac=0.2, seed=2)
     prob = LiftedProblem.from_data(data, r=5)
     cfg = AgentConfig(

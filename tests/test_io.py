@@ -1,43 +1,69 @@
 """Dataset ingestion parity tests (SURVEY.md §7 step 1).
 
-Golden values come from SURVEY.md §2.5 dataset inventory and the reference's
-partitioning rules (``PGODatasetPublisherNode.cpp:84-135``).
+Shapes come from the registry of generated worlds (``io/datasets.py``) and
+the reference's partitioning rules (``PGODatasetPublisherNode.cpp:84-135``).
+g2o and CSV parsing run on files written from those worlds.
 """
 
 import numpy as np
 import pytest
 
-from dpgo_ros_tpu.io.datasets import (
-    G2O_DATASETS,
-    dataset_path,
-    load_g2o_dataset,
-    load_tunnels,
-)
+from dpgo_ros_tpu.io import datasets
+from dpgo_ros_tpu.io.csv_loader import load_multi_robot_csv
+from dpgo_ros_tpu.io.datasets import load_dataset, load_world
 from dpgo_ros_tpu.io.g2o import read_g2o, rot_to_quat, write_g2o, _quat_to_rot
-from dpgo_ros_tpu.io.partition import contiguous_partition
+from dpgo_ros_tpu.io.partition import contiguous_partition, partition_g2o
 from dpgo_ros_tpu.types import EdgeType
+from world_files import world_g2o, write_robot_csvs
 
 
-def test_tinygrid_counts():
-    m, n, vertices = read_g2o(dataset_path("tinyGrid3D"))
+def test_tinygrid_counts(tmp_path):
+    path, _, _ = world_g2o(tmp_path, "synthetic_grid9")
+    m, n, vertices = read_g2o(path)
     assert n == 9
-    assert len(m) == 11
+    assert len(m) == 14
     assert vertices is not None and len(vertices) == 9
     # rotations are valid
     RtR = np.einsum("eij,eik->ejk", m.R, m.R)
     assert np.allclose(RtR, np.eye(3)[None], atol=1e-6)
-    # SE-Sync kappa/tau extraction: info diag 100 (trans) / 25 (rot)
-    # => tau = 3/(3/100) = 100, kappa = 3/(2*3/25) = 12.5
-    assert np.allclose(m.tau, 100.0)
-    assert np.allclose(m.kappa, 12.5)
+    # SE-Sync kappa/tau extraction inverts the writer's isotropic
+    # information: noise 0.1 (trans) / 0.05 (rot) => tau 100, kappa 400
+    assert np.allclose(m.tau, 100.0, rtol=1e-6)
+    assert np.allclose(m.kappa, 400.0, rtol=1e-6)
 
 
-@pytest.mark.parametrize("name", ["smallGrid3D", "sphere2500"])
-def test_dataset_counts(name):
-    poses, edges = G2O_DATASETS[name]
-    m, n, _ = read_g2o(dataset_path(name))
-    assert n == poses
-    assert len(m) == edges
+@pytest.mark.parametrize("name,poses,edges,loops", [
+    ("synthetic_grid9", 9, 14, 6),
+    ("synthetic_grid125", 125, 244, 120),
+    # sphere2500's shape: 50 rings of 50 poses
+    ("synthetic_sphere2500", 2500, 4949, 2450),
+    ("synthetic_gnc8", 2000, 3954, 1955),
+])
+def test_dataset_counts(name, poses, edges, loops):
+    data, T_gt, out = load_world(name, num_robots=1)
+    assert data.total_poses == poses == T_gt.shape[0]
+    assert len(data.measurements) == edges
+    odo, priv, shared = data.counts_by_type()
+    assert (odo, priv + shared) == (poses - 1, loops)
+    # only the GNC world plants outliers, all of them loop closures
+    assert out.sum() == (round(0.2 * loops) if name == "synthetic_gnc8" else 0)
+    assert not out[:poses - 1].any()
+
+
+def test_bundled_names_need_the_data_dir(monkeypatch, tmp_path):
+    """A bundled name reads DPGO_TPU_DATA_DIR and never falls back to a
+    generated world."""
+    monkeypatch.delenv("DPGO_TPU_DATA_DIR", raising=False)
+    with pytest.raises(FileNotFoundError, match="DPGO_TPU_DATA_DIR"):
+        load_dataset("sphere2500", num_robots=5)
+    monkeypatch.setenv("DPGO_TPU_DATA_DIR", str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="not found"):
+        load_dataset("sphere2500", num_robots=5)
+    with pytest.raises(KeyError):
+        load_dataset("no_such_world")
+    path, _, _ = world_g2o(tmp_path, "synthetic_grid9")
+    (tmp_path / "tinyGrid3D.g2o").write_text(open(path).read())
+    assert load_dataset("tinyGrid3D", num_robots=2).total_poses == 9
 
 
 def test_contiguous_partition_matches_reference_rule():
@@ -48,12 +74,12 @@ def test_contiguous_partition_matches_reference_rule():
 
 
 def test_partition_edge_classification():
-    data = load_g2o_dataset("smallGrid3D", num_robots=2)
+    data = load_dataset("synthetic_grid125", num_robots=2)
     assert data.num_robots == 2
     assert data.total_poses == 125
     assert list(data.num_poses) == [62, 63]
     n_odo, n_priv, n_shared = data.counts_by_type()
-    assert n_odo + n_priv + n_shared == 297
+    assert n_odo + n_priv + n_shared == 244
     # every odometry edge is consecutive within one robot
     m = data.measurements
     odo = m.edge_type == EdgeType.ODOMETRY
@@ -69,7 +95,7 @@ def test_partition_edge_classification():
 
 
 def test_partition_initial_guess_shapes():
-    data = load_g2o_dataset("tinyGrid3D", num_robots=2)
+    data = load_dataset("synthetic_grid9", num_robots=2)
     assert data.initial_guess is not None
     assert data.initial_guess[0].shape == (4, 3, 4)
     assert data.initial_guess[1].shape == (5, 3, 4)
@@ -86,8 +112,8 @@ def test_quat_roundtrip():
 
 
 def test_g2o_write_read_roundtrip(tmp_path):
-    data = load_g2o_dataset("tinyGrid3D", num_robots=1)
-    m, n, vertices = read_g2o(dataset_path("tinyGrid3D"))
+    path, _, _ = world_g2o(tmp_path, "synthetic_grid9")
+    m, n, vertices = read_g2o(path)
     traj = np.stack([vertices[i] for i in range(n)])
     p = tmp_path / "out.g2o"
     write_g2o(str(p), traj, m)
@@ -100,27 +126,28 @@ def test_g2o_write_read_roundtrip(tmp_path):
     assert np.allclose(m.tau, m2.tau, rtol=1e-4)
 
 
-def test_tunnels_loader():
-    data = load_tunnels()
+def test_tunnels_loader(tmp_path):
+    """The tunnels loader path (per-robot CSVs, shared edges listed by both
+    endpoints) on CSVs written from the 8-robot GNC world."""
+    world = load_dataset("synthetic_gnc8", num_robots=8)
+    data = load_multi_robot_csv(write_robot_csvs(tmp_path, world))
     assert data.num_robots == 8
-    # 8,439 rows total across the 8 files (SURVEY.md §2.5); every shared loop
-    # closure appears in both endpoint files, so dedup keeps
-    # 1247 odometry + 96 private + 3548 shared = 4891 unique measurements
-    assert len(data.measurements) == 4891
-    n_odo, n_priv, n_shared = data.counts_by_type()
-    assert (n_odo, n_priv, n_shared) == (1247, 96, 3548)
+    # dedup keeps one copy of every shared loop closure
+    assert len(data.measurements) == len(world.measurements)
+    assert data.counts_by_type() == world.counts_by_type()
+    np.testing.assert_array_equal(data.num_poses, world.num_poses)
     # known-inlier column respected
     assert data.measurements.fixed_weight.any()
     assert (~data.measurements.fixed_weight).any()
 
 
-def test_balanced_contiguous_partition():
+def test_balanced_contiguous_partition(tmp_path):
     """Work-balanced contiguous cuts: contiguity, non-empty blocks, and a
     bottleneck no worse than the equal-count split (the linear-partition
     optimum is <= any other contiguous split's max block sum)."""
     import numpy as np
 
-    from dpgo_ros_tpu.io.datasets import load_g2o_dataset
+    from dpgo_ros_tpu.io.datasets import load_dataset
     from dpgo_ros_tpu.io.partition import (
         balanced_contiguous_partition,
         contiguous_partition,
@@ -143,12 +170,16 @@ def test_balanced_contiguous_partition():
         sums_e = np.bincount(eq_r, weights=w, minlength=R)
         assert sums_b.max() <= sums_e.max() + 1e-9
 
-    # parking-garage@5: the motivating case (SCALING_r03.json) — work skew
-    # drops from ~1.73 (equal poses) to ~1.0x (balanced)
-    data_eq = load_g2o_dataset("parking-garage", num_robots=5)
-    data_bal = load_g2o_dataset(
-        "parking-garage", num_robots=5, balance="work"
-    )
+    # loop closures concentrated in the first two fifths of the sphere
+    # world (as parking-garage concentrates them): work skew drops from
+    # ~1.25 (equal poses) to ~1.0 (balanced)
+    data, T_gt, _ = load_world("synthetic_sphere2500", num_robots=1)
+    m = data.measurements
+    keep = (m.edge_type == EdgeType.ODOMETRY) | (m.src_frame < 1000)
+    path = str(tmp_path / "skewed.g2o")
+    write_g2o(path, T_gt, m.select(keep))
+    data_eq = partition_g2o(path, 5)
+    data_bal = partition_g2o(path, 5, balance="work")
 
     def skew(data):
         from dpgo_ros_tpu.models.problem import LiftedProblem
@@ -164,8 +195,8 @@ def test_balanced_contiguous_partition():
         )
         return work.max() / work.mean()
 
-    assert skew(data_eq) > 1.5
-    assert skew(data_bal) < 1.1
+    assert skew(data_eq) > 1.2
+    assert skew(data_bal) < 1.05
     # same problem: identical measurement count and total poses
     assert int(np.sum(data_bal.num_poses)) == int(np.sum(data_eq.num_poses))
     assert len(data_bal.measurements) == len(data_eq.measurements)
@@ -176,12 +207,12 @@ def test_balanced_partition_solves_to_same_optimum():
     partition solve reaches the same tinyGrid3D optimum."""
     import jax.numpy as jnp
 
-    from dpgo_ros_tpu.io.datasets import load_g2o_dataset
+    from dpgo_ros_tpu.io.datasets import load_dataset
     from dpgo_ros_tpu.parallel.rbcd import RBCDEngine
     from dpgo_ros_tpu.models.problem import LiftedProblem
     from dpgo_ros_tpu.utils.config import AgentConfig, UpdateRule
 
-    data = load_g2o_dataset("tinyGrid3D", num_robots=2, balance="work")
+    data = load_dataset("synthetic_grid9", num_robots=2, balance="work")
     prob = LiftedProblem.from_data(data, r=5)
     eng = RBCDEngine(
         prob,
@@ -192,4 +223,6 @@ def test_balanced_partition_solves_to_same_optimum():
         ),
     )
     _, info = eng.run(eng.initialize())
-    assert info["final_cost"] < 18.52 * 1.02
+    assert info["final_cost"] < (
+        datasets.golden_optimum("synthetic_grid9") * 1.02
+    )

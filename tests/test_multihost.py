@@ -1,7 +1,7 @@
 """Multi-host (multi-process) SPMD path — SURVEY.md §7 step 8.
 
 The reference scales robot count by adding ROS processes on a network
-(`/root/reference/src/PGOAgentROS.cpp:45-82`); here the same shard_map
+(reference `src/PGOAgentROS.cpp:45-82`); here the same shard_map
 program spans hosts: 2 CPU processes × 4 virtual devices = one global
 8-device mesh with Gloo collectives standing in for DCN. Launches
 ``scripts/multihost_demo.py`` as real subprocesses (jax.distributed

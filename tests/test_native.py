@@ -5,16 +5,17 @@ import pytest
 
 from dpgo_ros_tpu.io import native
 from dpgo_ros_tpu.io.csv_loader import load_measurements_csv
-from dpgo_ros_tpu.io.datasets import dataset_path, tunnels_paths
+from dpgo_ros_tpu.io.datasets import load_dataset
 from dpgo_ros_tpu.io.g2o import read_g2o
+from world_files import world_g2o, write_robot_csvs
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library unavailable (no toolchain)"
 )
 
 
-def test_native_g2o_matches_python(monkeypatch):
-    path = dataset_path("smallGrid3D")
+def test_native_g2o_matches_python(monkeypatch, tmp_path):
+    path, _, _ = world_g2o(tmp_path, "synthetic_grid125")
     monkeypatch.setenv("DPGO_TPU_NO_NATIVE", "1")  # force the Python path
     mp, n_p, vp = read_g2o(path)
     monkeypatch.delenv("DPGO_TPU_NO_NATIVE")
@@ -32,8 +33,10 @@ def test_native_g2o_matches_python(monkeypatch):
         assert np.allclose(vn[k], vp[k], atol=1e-12)
 
 
-def test_native_csv_matches_python(monkeypatch):
-    path = tunnels_paths()[0]
+def test_native_csv_matches_python(monkeypatch, tmp_path):
+    path = write_robot_csvs(
+        tmp_path, load_dataset("synthetic_gnc8", num_robots=8)
+    )[0]
     monkeypatch.setenv("DPGO_TPU_NO_NATIVE", "1")  # force the Python path
     mp = load_measurements_csv(path)
     monkeypatch.delenv("DPGO_TPU_NO_NATIVE")

@@ -7,14 +7,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dpgo_ros_tpu.io.datasets import load_g2o_dataset
+from dpgo_ros_tpu.io.datasets import load_dataset
 from dpgo_ros_tpu.models.problem import LiftedProblem
 from dpgo_ros_tpu.ops import chordal, lie, quadratic, rounding, stiefel
 
 
 @pytest.fixture(scope="module")
 def tiny():
-    data = load_g2o_dataset("tinyGrid3D", num_robots=1)
+    data = load_dataset("synthetic_grid9", num_robots=1)
     return LiftedProblem.from_data(data, r=5)
 
 
@@ -135,7 +135,7 @@ def _rand_rot(rng):
 
 def test_padding_edges_are_inert(tiny):
     """Padded EdgeSet must produce identical cost/grad."""
-    data = load_g2o_dataset("tinyGrid3D", num_robots=1)
+    data = load_dataset("synthetic_grid9", num_robots=1)
     padded = LiftedProblem.from_data(data, r=5, pad_edges_to=32)
     X = _random_X(jax.random.PRNGKey(9), tiny.n, tiny.r, tiny.d)
     assert jnp.abs(
@@ -164,11 +164,11 @@ def test_pull_path_matches_scatter(tiny):
     including under edge padding."""
     import dataclasses
 
-    from dpgo_ros_tpu.io.datasets import load_g2o_dataset
+    from dpgo_ros_tpu.io.datasets import load_dataset
     from dpgo_ros_tpu.models.problem import LiftedProblem
 
     for pad in (None, 40):
-        data = load_g2o_dataset("tinyGrid3D", num_robots=2)
+        data = load_dataset("synthetic_grid9", num_robots=2)
         prob = LiftedProblem.from_data(data, r=5, pad_edges_to=pad)
         assert prob.edges.pull is not None
         e_pull = prob.edges
@@ -270,7 +270,7 @@ def test_ate_alignment():
 
 
 def test_separator_mask():
-    data = load_g2o_dataset("smallGrid3D", num_robots=2)
+    data = load_dataset("synthetic_grid125", num_robots=2)
     prob = LiftedProblem.from_data(data, r=5)
     m = prob.separator_mask()
     assert m.shape == (125,)

@@ -15,7 +15,7 @@ from dpgo_ros_tpu import cli as cli_mod
 def test_engine_mid_run_snapshots(tmp_path):
     snap_dir = str(tmp_path / "snaps")
     rc = cli_mod.main([
-        "--dataset", "tinyGrid3D", "--num_robots", "2",
+        "--dataset", "synthetic_grid9", "--num_robots", "2",
         "--platform", "cpu",
         "--max_iteration_number", "8",
         "--relative_change_tolerance", "0",
@@ -41,7 +41,7 @@ def test_engine_mid_run_snapshots(tmp_path):
 def test_spmd_mid_run_snapshots(tmp_path):
     snap_dir = str(tmp_path / "snaps_spmd")
     rc = cli_mod.main([
-        "--dataset", "tinyGrid3D", "--num_robots", "2",
+        "--dataset", "synthetic_grid9", "--num_robots", "2",
         "--mode", "spmd", "--platform", "cpu",
         "--max_iteration_number", "8",
         "--relative_change_tolerance", "0",
@@ -58,7 +58,7 @@ def test_fleet_mid_run_snapshots(tmp_path):
     that runs longest — streams mid-run snapshots too."""
     snap_dir = str(tmp_path / "fleet_snaps")
     rc = cli_mod.main([
-        "--dataset", "tinyGrid3D", "--num_robots", "2",
+        "--dataset", "synthetic_grid9", "--num_robots", "2",
         "--platform", "cpu", "--mode", "fleet",
         "--viz_interval_iters", "3",  # ticks, in fleet mode
         "--viz_dir", snap_dir,

@@ -4,7 +4,7 @@ reference lacks).
 
 Golden values established with this framework at fp64 and cross-checked for
 internal consistency (distributed cost == centralized cost); the
-tinyGrid3D optimum ~18.52 is stable across solvers/partitions.
+9-pose grid world's certified optimum is stable across solvers/partitions.
 """
 
 import jax
@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dpgo_ros_tpu.io.datasets import load_g2o_dataset
+from dpgo_ros_tpu.io.datasets import golden_optimum, load_dataset
 from dpgo_ros_tpu.models.local_solvers import RTRParams, rtr_solve
 from dpgo_ros_tpu.models.problem import LiftedProblem
 from dpgo_ros_tpu.ops import quadratic, rounding, stiefel
@@ -24,11 +24,11 @@ from dpgo_ros_tpu.utils.config import (
     UpdateRule,
 )
 
-TINY_OPT_COST = 18.52  # tinyGrid3D L2 optimum (this framework, fp64)
+TINY_OPT_COST = golden_optimum("synthetic_grid9")  # certified, fp64
 
 
 def _engine(name, num_robots, **kw):
-    data = load_g2o_dataset(name, num_robots=num_robots)
+    data = load_dataset(name, num_robots=num_robots)
     prob = LiftedProblem.from_data(data, r=kw.pop("r", 5))
     cfg = AgentConfig(
         num_robots=num_robots,
@@ -41,7 +41,7 @@ def _engine(name, num_robots, **kw):
 
 
 def test_single_robot_tinygrid_converges():
-    eng = _engine("tinyGrid3D", 1, max_iters=50)
+    eng = _engine("synthetic_grid9", 1, max_iters=50)
     st = eng.initialize()
     f0 = float(st.cost)
     st, info = eng.run(st)
@@ -57,23 +57,23 @@ def test_single_robot_tinygrid_converges():
 
 
 def test_two_robot_rbcd_matches_centralized():
-    eng1 = _engine("tinyGrid3D", 1, max_iters=50)
+    eng1 = _engine("synthetic_grid9", 1, max_iters=50)
     _, info1 = eng1.run()
-    eng2 = _engine("tinyGrid3D", 2, max_iters=100,
+    eng2 = _engine("synthetic_grid9", 2, max_iters=100,
                    update_rule=UpdateRule.ROUND_ROBIN)
     _, info2 = eng2.run()
     assert info2["final_cost"] < info1["final_cost"] * 1.02 + 1e-6
 
 
 def test_parallel_update_rule_matches_sequential():
-    eng = _engine("tinyGrid3D", 2, max_iters=100,
+    eng = _engine("synthetic_grid9", 2, max_iters=100,
                   update_rule=UpdateRule.PARALLEL)
     _, info = eng.run()
     assert info["final_cost"] < TINY_OPT_COST * 1.02
 
 
 def test_rgd_solver_decreases_cost():
-    eng = _engine("tinyGrid3D", 1, max_iters=30, solver=SolverMethod.RGD,
+    eng = _engine("synthetic_grid9", 1, max_iters=30, solver=SolverMethod.RGD,
                   RGD_stepsize=1e-2, tol=1e-4)
     st = eng.initialize()
     f0 = float(st.cost)
@@ -82,7 +82,7 @@ def test_rgd_solver_decreases_cost():
 
 
 def test_acceleration_not_worse():
-    eng_p = _engine("tinyGrid3D", 2, max_iters=100, acceleration=True,
+    eng_p = _engine("synthetic_grid9", 2, max_iters=100, acceleration=True,
                     update_rule=UpdateRule.ROUND_ROBIN)
     _, info = eng_p.run()
     assert info["final_cost"] < TINY_OPT_COST * 1.05
@@ -90,9 +90,9 @@ def test_acceleration_not_worse():
 
 @pytest.mark.slow
 def test_chordal_init_lower_cost_than_odometry():
-    ec = _engine("smallGrid3D", 1,
+    ec = _engine("synthetic_grid125", 1,
                  local_initialization_method=InitMethod.CHORDAL)
-    eo = _engine("smallGrid3D", 1,
+    eo = _engine("synthetic_grid125", 1,
                  local_initialization_method=InitMethod.ODOMETRY)
     fc = float(ec.initialize().cost)
     fo = float(eo.initialize().cost)
@@ -101,9 +101,9 @@ def test_chordal_init_lower_cost_than_odometry():
 
 def test_rtr_monotone_descent():
     """RTR never increases the cost (trust-region acceptance)."""
-    data = load_g2o_dataset("tinyGrid3D", num_robots=1)
+    data = load_dataset("synthetic_grid9", num_robots=1)
     prob = LiftedProblem.from_data(data, r=5)
-    eng = _engine("tinyGrid3D", 1)
+    eng = _engine("synthetic_grid9", 1)
     st = eng.initialize()
     X = st.X
     e = prob.edges
@@ -122,7 +122,7 @@ def test_fused_runner_matches_host_driven():
     same cost region as the host-driven loop, and stop on the same
     termination rule."""
     for rule in (UpdateRule.ROUND_ROBIN, UpdateRule.UNIFORM):
-        eng = _engine("tinyGrid3D", 2, max_iters=60, update_rule=rule)
+        eng = _engine("synthetic_grid9", 2, max_iters=60, update_rule=rule)
         st0 = eng.initialize()
         st_host, info = eng.run(st0)
         run = eng.make_fused_run(60)
@@ -141,12 +141,12 @@ def test_ate_distributed_vs_centralized():
     within the ATE bound'): the distributed 2-robot solution must align to
     the tight centralized solution within a small translational RMSE."""
     # tight centralized oracle
-    engc = _engine("smallGrid3D", 1, tol=1e-3, max_iters=50,
+    engc = _engine("synthetic_grid125", 1, tol=1e-3, max_iters=50,
                    gradnorm_tol=1e-2)
     stc, _ = engc.run()
     Tc, _ = engc.finalize(stc)
     # distributed solve at demo-like settings
-    engd = _engine("smallGrid3D", 2, tol=1e-2, max_iters=100,
+    engd = _engine("synthetic_grid125", 2, tol=1e-2, max_iters=100,
                    update_rule=UpdateRule.ROUND_ROBIN)
     std, _ = engd.run()
     Td, _ = engd.finalize(std)
@@ -156,7 +156,7 @@ def test_ate_distributed_vs_centralized():
 
 
 def test_run_history_telemetry():
-    eng = _engine("tinyGrid3D", 2, max_iters=20)
+    eng = _engine("synthetic_grid9", 2, max_iters=20)
     _, info = eng.run()
     h = info["history"]
     assert len(h["cost"]) == info["iterations"]
@@ -167,12 +167,12 @@ def test_run_history_telemetry():
 def test_no_premature_termination_on_stale_rel_change():
     """Round-3 regression (termination fix): a robot's recorded rel-change
     goes stale when a neighbor later moves; without neighbor invalidation
-    the 2-robot Uniform tinyGrid run terminated at rel=[0,0] with cost
+    the 2-robot Uniform tinyGrid3D run terminated at rel=[0,0] with cost
     21.6 while block 1's true masked gradient norm was 25.4. With the fix
     the run must continue to the certified global optimum."""
     from dpgo_ros_tpu.ops import certificate
 
-    data = load_g2o_dataset("tinyGrid3D", num_robots=2)
+    data = load_dataset("synthetic_grid9", num_robots=2)
     prob = LiftedProblem.from_data(data, r=5)
     cfg = AgentConfig(
         num_robots=2,

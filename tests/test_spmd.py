@@ -7,7 +7,9 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from dpgo_ros_tpu.io.datasets import load_g2o_dataset
+from dpgo_ros_tpu.io.datasets import golden_optimum, load_dataset
+
+SMALL_OPT = golden_optimum("synthetic_grid125")
 from dpgo_ros_tpu.models.problem import LiftedProblem
 from dpgo_ros_tpu.ops import quadratic
 from dpgo_ros_tpu.parallel.rbcd import RBCDEngine
@@ -25,7 +27,7 @@ from dpgo_ros_tpu.utils.config import (
 
 
 def _setup(num_robots, **cfg_kw):
-    data = load_g2o_dataset("smallGrid3D", num_robots=num_robots)
+    data = load_dataset("synthetic_grid125", num_robots=num_robots)
     prob = LiftedProblem.from_data(data, r=5, dtype=jnp.float32)
     cfg_kw.setdefault("local_initialization_method", InitMethod.ODOMETRY)
     cfg = AgentConfig(
@@ -57,8 +59,8 @@ def test_spmd_matches_centralized_cost():
     f = float(
         quadratic.cost(jnp.asarray(Xg, jnp.float64), eng._edges(st0.weights))
     )
-    # centralized fp64 optimum is ~1025.4
-    assert f < 1025.4 * 1.01
+    # centralized fp64 optimum (certified)
+    assert f < SMALL_OPT * 1.01
 
 
 def test_spmd_accelerated_runs_and_descends():
@@ -110,62 +112,30 @@ def test_spmd_gnc_weight_round():
     assert np.isfinite(f_final)
 
 
-def test_spmd_stretch_single_device_matches_per_step():
-    """Round 5 (VERDICT r4 #2): S=1 ≡ stretch equivalence pin. On an M=1
-    mesh the in-kernel stretch sees no stale separators (its own block is
-    the whole gathered state and evolves in-kernel), so 2 launches of
-    ``spmd_steps_per_launch=4`` must reproduce 8 per-step launches up to
-    the kernel's per-step mask-restore ULP difference."""
-    data, prob, eng, st0, sp, st_a, step_a = _setup(
-        1, use_fused_kernel=True
+def _skewed_world(n=1000, num_robots=5):
+    """A 5-robot sphere world whose loop closures all start in robot 0's
+    block: equal-pose blocks carry very unequal edge work."""
+    from dpgo_ros_tpu.io.datasets import load_world
+    from dpgo_ros_tpu.io.partition import (
+        contiguous_partition,
+        partition_measurements,
     )
-    data2, prob2, eng2, st02, sp2, st_b, step_b = _setup(
-        1, use_fused_kernel=True, spmd_steps_per_launch=4
-    )
-    for it in range(8):
-        st_a = step_a(np.int32(it), np.int32(0), st_a)
-    for lt in range(2):
-        st_b = step_b(np.int32(lt), np.int32(0), st_b)
-    assert int(np.asarray(st_a.iteration)[0, 0]) == 8
-    assert int(np.asarray(st_b.iteration)[0, 0]) == 8
-    Xa = gather_trajectory(sp, st_a, prob.num_poses)
-    Xb = gather_trajectory(sp2, st_b, prob2.num_poses)
-    fa = float(quadratic.cost(jnp.asarray(Xa), eng._edges(st0.weights)))
-    fb = float(quadratic.cost(jnp.asarray(Xb), eng2._edges(st02.weights)))
-    assert fb == pytest.approx(fa, rel=2e-3)
-    np.testing.assert_allclose(Xb, Xa, rtol=5e-3, atol=5e-3)
+    from dpgo_ros_tpu.types import EdgeType, PoseGraphData
 
-
-def test_spmd_stretch_converges_multi_device():
-    """4 robots with S=16 RGD ticks per kernel launch: separators are up
-    to 15 ticks stale inside a stretch — the ASAPP bounded-staleness
-    regime (small preconditioned gradient steps tolerate staleness; full
-    trust-region block solves do NOT — measured to diverge, which is why
-    multi-slot stretches use ``spmd_stretch_rgd_stepsize``). Must converge
-    to the centralized optimum."""
-    data, prob, eng, st0, sp, st, step = _setup(
-        4,
-        use_fused_kernel=True,
-        local_initialization_method=InitMethod.CHORDAL,
-        spmd_steps_per_launch=16,
-        spmd_stretch_rgd_stepsize=0.2,
+    data, _, _ = load_world("synthetic_sphere2500", num_robots=1, n=n)
+    m = data.measurements
+    m = m.select((m.edge_type == EdgeType.ODOMETRY) | (m.src_frame < 200))
+    robot, local = contiguous_partition(n, num_robots)
+    return PoseGraphData(
+        measurements=partition_measurements(m, n, num_robots, robot, local),
+        num_poses=np.bincount(robot, minlength=num_robots).astype(np.int64),
+        d=3,
     )
-    for lt in range(32):  # 512 RGD ticks in 32 launches
-        st = step(np.int32(lt), np.int32(0), st)
-        # per-launch sync: long unsynced dispatch chains can deadlock the
-        # in-process CPU all_gather rendezvous (2 cores, 8 threads)
-        st.X.block_until_ready()
-    assert int(np.asarray(st.iteration)[0, 0]) == 512
-    Xg = gather_trajectory(sp, st, prob.num_poses)
-    f = float(
-        quadratic.cost(jnp.asarray(Xg, jnp.float64), eng._edges(st0.weights))
-    )
-    assert f < 1025.4 * 1.01
 
 
 def _work_skew(data):
     """max/mean of per-block lane work (poses + owned edges) — the
-    SCALING_r03 load-balance model."""
+    lane-cost load-balance model."""
     num_poses = np.asarray(data.num_poses, np.int64)
     offs = np.concatenate([[0], np.cumsum(num_poses)])
     m = data.measurements
@@ -184,9 +154,9 @@ def test_repartition_slots_cost_invariant_and_balanced():
     centralized optimum."""
     from dpgo_ros_tpu.parallel.spmd import repartition_slots
 
-    data = load_g2o_dataset("smallGrid3D", num_robots=2)
+    data = load_dataset("synthetic_grid125", num_robots=2)
     data3 = repartition_slots(
-        load_g2o_dataset("smallGrid3D", num_robots=2), 3
+        load_dataset("synthetic_grid125", num_robots=2), 3
     )
     assert data3.num_robots == 3
     prob2 = LiftedProblem.from_data(data, r=5, dtype=jnp.float32)
@@ -201,12 +171,11 @@ def test_repartition_slots_cost_invariant_and_balanced():
     f2 = float(quadratic.cost(st2.X, prob2.edges))
     f3 = float(quadratic.cost(st2.X, prob3.edges))
     assert f3 == pytest.approx(f2, rel=1e-5)
-    # the dataset-fixed skew case: parking-garage@5 (1.73 → ~1.0)
-    pg = load_g2o_dataset("parking-garage", num_robots=5)
+    # the dataset-fixed skew case (as parking-garage@5): loop closures
+    # concentrated in robot 0's block (~1.36 → ~1.0)
+    pg = _skewed_world()
     s_before = _work_skew(pg)
-    s_after = _work_skew(
-        repartition_slots(load_g2o_dataset("parking-garage", num_robots=5), 5)
-    )
+    s_after = _work_skew(repartition_slots(_skewed_world(), 5))
     assert s_before > 1.3 and s_after < 1.1, (s_before, s_after)
     # the repartitioned mesh still converges to the centralized optimum
     cfg3 = AgentConfig(
@@ -230,7 +199,7 @@ def test_repartition_slots_cost_invariant_and_balanced():
     f = float(
         quadratic.cost(jnp.asarray(Xg, jnp.float64), eng3._edges(st0.weights))
     )
-    assert f < 1025.4 * 1.01
+    assert f < SMALL_OPT * 1.01
 
 
 def test_spmd_separator_only_exchange_matches_full():
@@ -256,7 +225,7 @@ def test_spmd_more_robots_than_devices_via_grouping():
     """8 robots on a 4-device mesh: robots group into super-blocks."""
     from dpgo_ros_tpu.parallel.spmd import group_robots
 
-    data = load_g2o_dataset("smallGrid3D", num_robots=8)
+    data = load_dataset("synthetic_grid125", num_robots=8)
     grouped = group_robots(data, 4)
     assert grouped.num_robots == 4
     assert grouped.total_poses == data.total_poses
@@ -283,13 +252,13 @@ def test_spmd_more_robots_than_devices_via_grouping():
     f = float(
         quadratic.cost(jnp.asarray(Xg, jnp.float64), eng._edges(st0.weights))
     )
-    assert f < 1025.4 * 1.01  # centralized optimum
+    assert f < SMALL_OPT * 1.01  # centralized optimum
 
 
 @pytest.mark.slow
 def test_spmd_more_devices_than_robots():
     """Empty mesh slots (8 devices, 5 robots) must be inert."""
-    data = load_g2o_dataset("smallGrid3D", num_robots=5)
+    data = load_dataset("synthetic_grid125", num_robots=5)
     prob = LiftedProblem.from_data(data, r=5, dtype=jnp.float32)
     cfg = AgentConfig(
         num_robots=5,

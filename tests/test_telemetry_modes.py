@@ -1,4 +1,4 @@
-"""Per-iteration CSV telemetry parity in EVERY run mode (VERDICT r2 #5).
+"""Per-iteration CSV telemetry parity in EVERY run mode.
 
 The reference writes the 9-column per-agent CSV + event rows for every run
 (``src/PGOAgentROS.cpp:853-907``, per-agent dirs at ``:1017-1022``); here
@@ -17,7 +17,7 @@ from dpgo_ros_tpu.cli import main
 from dpgo_ros_tpu.utils.telemetry import HEADER
 
 BASE = [
-    "--dataset", "tinyGrid3D", "--num_robots", "2",
+    "--dataset", "synthetic_grid9", "--num_robots", "2",
     "--platform", "cpu", "--update_rule", "RoundRobin",
     "--local_initialization_method", "Odometry",
     "--max_iteration_number", "6",
@@ -83,6 +83,7 @@ def test_async_mode_writes_reference_schema(tmp_path):
     args = BASE + [
         "--mode", "async", "--log_directory", log_dir,
         "--max_iteration_number", "8",
+        "--asapp_tolerance", "0",  # no early stop: exactly 8 ticks
     ]
     assert main(args) == 0
     logs = _read_agent_logs(log_dir)
@@ -99,7 +100,7 @@ def test_gnc_event_rows_interleaved(tmp_path):
     for mode in ("engine", "fused"):
         log_dir = str(tmp_path / ("gnc_" + mode))
         args = [
-            "--dataset", "smallGrid3D", "--num_robots", "2",
+            "--dataset", "synthetic_grid125", "--num_robots", "2",
             "--platform", "cpu", "--update_rule", "RoundRobin",
             "--local_initialization_method", "Odometry",
             "--robust_cost_type", "GNC_TLS",

@@ -1,4 +1,6 @@
-"""Tunnels 8-robot GNC validation on the real dataset (VERDICT r1 #3).
+"""Tunnels 8-robot GNC validation on the real dataset, read from
+``DPGO_TPU_DATA_DIR`` (the generated GNC world's tests are in
+``test_gnc.py``).
 
 Ground-truth note (established against the raw reference data): the
 ``is_known_inlier`` column of ``data/tunnels/robot*/measurements.csv`` marks
@@ -28,7 +30,7 @@ pytestmark = pytest.mark.slow
 
 import jax.numpy as jnp
 
-from dpgo_ros_tpu.io.datasets import load_tunnels
+from dpgo_ros_tpu.io.datasets import load_dataset
 from dpgo_ros_tpu.models import robust
 from dpgo_ros_tpu.models.problem import LiftedProblem
 from dpgo_ros_tpu.ops import quadratic, rounding
@@ -46,7 +48,7 @@ BARC = 3.0  # reference launch/dpgo_gnc_demo.launch:37
 
 @pytest.fixture(scope="module")
 def tunnels_solution():
-    data = load_tunnels()
+    data = load_dataset("tunnels", num_robots=8)
     prob = LiftedProblem.from_data(data, r=5, dtype=jnp.float64)
     cfg = AgentConfig(
         num_robots=8,
@@ -68,7 +70,7 @@ def tunnels_solution():
 
 
 def test_known_inlier_labels_cover_only_odometry():
-    data = load_tunnels()
+    data = load_dataset("tunnels", num_robots=8)
     m = data.measurements
     odo = m.edge_type == EdgeType.ODOMETRY
     # loader parity: fixed_weight == is_known_inlier | odometry; in this
@@ -126,13 +128,13 @@ def test_tunnels_accept_reject_separation(tunnels_solution):
 @pytest.fixture(scope="module")
 def tunnels_two_schedules():
     """RoundRobin + Uniform solves at the schedule-stable config
-    (convergence-gated weight rounds, exp_tunnels_schedule.json
+    (convergence-gated weight rounds
     'innertol_tight'): weight rounds fire once every robot's block has
     settled below robust_opt_inner_tol, so GNC residuals are evaluated at
     the weighted optimum — which does not depend on the update order."""
     out = {}
     for rule in (UpdateRule.ROUND_ROBIN, UpdateRule.UNIFORM):
-        data = load_tunnels()
+        data = load_dataset("tunnels", num_robots=8)
         prob = LiftedProblem.from_data(data, r=5, dtype=jnp.float64)
         cfg = AgentConfig(
             num_robots=8,
